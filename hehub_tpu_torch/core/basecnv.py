@@ -1,0 +1,160 @@
+"""RNS base manipulation on the CKKS main path (port of the parts of
+hehub_tpu/core/basecnv.py that it runs): the exact divide-by-last-limb
+with rounding behind rescale and the special-prime drop, the base-2^22
+digit interchange format of encode, and the Garner mixed-radix conversion
+of decode. All exact integer algorithms, elementwise with per-limb host
+constants.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from hehub_tpu_torch.core.context import Context
+from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly, shoup_constants
+from hehub_tpu_torch.ops import modarith as ma
+from hehub_tpu_torch.ops import ntt as nttmod
+from hehub_tpu_torch.utils import hostmath as hm
+
+
+@functools.lru_cache(maxsize=None)
+def _div_last_constants(ctx: Context, ids: Tuple[int, ...], device: str):
+    """Device constants of div_last_rounded for the limbs `ids`:
+    (corr, w1, w1_sh, w, w_sh), each [L-1, 1]."""
+    q_last = ctx.mod_list[ids[-1]]
+    rem_ids = ids[:-1]
+    rem_mods = ctx.moduli_of(rem_ids)
+    corr = np.asarray([(qj - q_last % qj) % qj for qj in rem_mods], np.int64)[:, None]
+    w1, w1_sh = shoup_constants(ctx, 1, rem_ids, device)
+    w, w_sh = shoup_constants(
+        ctx, [hm.modinv(q_last % qj, qj) for qj in rem_mods], rem_ids, device
+    )
+    return torch.from_numpy(corr).to(device), w1, w1_sh, w, w_sh
+
+
+def div_last_rounded(ctx: Context, poly: RnsPoly) -> RnsPoly:
+    """Exactly divide an NTT-form polynomial by its last RNS limb q_last with
+    rounding, dropping that limb: out ≡ round(x / q_last) mod q_j (the CKKS
+    flavour of the JAX twin; the BGV plain-modulus flavour waits for BGV)."""
+    if poly.form != NTT:
+        raise ValueError("div_last_rounded expects NTT form")
+    if poly.limb_count < 2:
+        raise ValueError("cannot drop the only limb")
+    ids = poly.limb_ids
+    last_id = ids[-1]
+    rem_ids = ids[:-1]
+    q_last = ctx.mod_list[last_id]
+    rem_mods = ctx.moduli_of(rem_ids)
+    dev = poly.data.device
+    corr, w1, w1_sh, w, w_sh = _div_last_constants(ctx, ids, str(dev))
+
+    # 1. last limb back to coefficients, strict
+    last = nttmod.intt(ctx, poly.data[..., -1:, :], (last_id,))
+    v = ma.reduce_strict(last, q_last)
+
+    # 2. centered remainder under each remaining limb: [0, 2 q_j)
+    q = ctx.device_rows("q", rem_ids, dev)
+    if q_last < 2 * min(rem_mods):
+        # uniform-width chains: v < q_last < 2 q_j, one subtract suffices
+        r = ma.reduce_strict(v, q)
+    else:
+        # mixed-width chains: q_last may dwarf a remaining limb — take
+        # v mod q_j by a Shoup multiply by 1 (valid for ANY uint32 input)
+        r = ma.reduce_strict(ma.shoup_mul_lazy(v, w1, w1_sh, q), q)
+    r = r + torch.where(v >= q_last // 2, corr, 0)
+
+    # 3. back to NTT under the remaining limbs
+    r_ntt = nttmod.ntt(ctx, r, rem_ids)
+
+    # 4. (x - r) * q_last^{-1} per limb
+    diff = ma.sub_lazy(poly.data[..., :-1, :], r_ntt, ctx.device_rows("two_q", rem_ids, dev))
+    return RnsPoly(ma.shoup_mul_lazy(diff, w, w_sh, q), NTT, rem_ids)
+
+
+def div_last_rounded_pair(ctx: Context, a: RnsPoly, b: RnsPoly) -> Tuple[RnsPoly, RnsPoly]:
+    """div_last_rounded on both ciphertext halves in one stacked call: the
+    INTT/NTT kernels see twice the rows and half the launches."""
+    if a.limb_ids != b.limb_ids or a.form != b.form:
+        raise ValueError("pair must share limbs and form")
+    out = div_last_rounded(ctx, RnsPoly(torch.stack([a.data, b.data]), a.form, a.limb_ids))
+    return (
+        RnsPoly(out.data[0], out.form, out.limb_ids),
+        RnsPoly(out.data[1], out.form, out.limb_ids),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Digit-form integers: the host -> device interchange format of encode
+# ---------------------------------------------------------------------------
+
+DIGIT_BITS = 22
+NUM_DIGITS = 3  # 3 x 22-bit digits cover |value| < 2^62
+
+
+def digitize_signed(ix: np.ndarray):
+    """Exact base-2^22 digit split of int64 values, |ix| < 2^62. Returns
+    (digits uint32 [..., 3, n], neg uint32 [..., n]) as host numpy."""
+    ix = np.asarray(ix, np.int64)
+    if np.abs(ix).max(initial=0) >= (1 << 62):
+        raise ValueError("digitize_signed requires |values| < 2^62")
+    neg = (ix < 0).astype(np.uint32)
+    ax = np.abs(ix).astype(np.uint64)
+    mask = np.uint64((1 << DIGIT_BITS) - 1)
+    digits = np.empty((*ix.shape[:-1], NUM_DIGITS, ix.shape[-1]), np.uint32)
+    for i in range(NUM_DIGITS):
+        digits[..., i, :] = ((ax >> np.uint64(DIGIT_BITS * i)) & mask).astype(np.uint32)
+    return digits, neg
+
+
+def decompose_digits(ctx: Context, digits, neg, ids: Tuple[int, ...]) -> RnsPoly:
+    """Residue decomposition of digitized signed integers on the digits'
+    device: lazy r_j = ±(d0 + d1·2^22 + d2·2^44) mod q_j.
+    digits: int64 [..., 3, n]; neg: int64 [..., n] (nonzero = negative)."""
+    dev = digits.device
+    mods = ctx.moduli_of(ids)
+    q = ctx.device_rows("q", ids, dev)
+    two_q = ctx.device_rows("two_q", ids, dev)
+    r = digits[..., 0:1, :]  # [..., 1, n] < 2^22
+    for i in range(1, NUM_DIGITS):
+        w, w_sh = shoup_constants(ctx, [(1 << (DIGIT_BITS * i)) % m for m in mods], ids, dev)
+        term = ma.shoup_mul_lazy(digits[..., i : i + 1, :], w, w_sh, q)
+        r = ma.add_lazy(r, term, two_q)
+    r = torch.where(neg[..., None, :] != 0, ma.neg_lazy(r, two_q), r)
+    return RnsPoly(r, COEFF, ids)
+
+
+def to_mixed_radix(ctx: Context, data, limb_ids: Tuple[int, ...], k: int):
+    """Garner conversion on the data's device: strict residues of x under
+    the first k limbs -> mixed-radix digits [..., k, n] with
+    x = Σ_j y_j · ∏_{m<j} q_m (mod ∏q). `data`: [..., L, n] lazy, L >= k."""
+    ids = limb_ids[:k]
+    mods = [int(m) for m in ctx.moduli_of(ids)]
+    x = ma.reduce_strict(data[..., :k, :], ctx.device_rows("q", ids, data.device))
+    ys = [x[..., 0, :]]
+    for i in range(1, k):
+        qi = mods[i]
+        two_qi = 2 * qi
+        if mods[0] < 2 * qi:
+            # uniform-width chains: y_0 < q_0 < 2·q_i, a valid lazy input
+            acc = ys[0]
+        else:
+            # mixed-width chains: route y_0 through a Shoup multiply by 1
+            acc = ma.shoup_mul_lazy(ys[0], 1, hm.shoup(1, qi), qi)
+        for j in range(1, i):
+            w = 1
+            for m in mods[:j]:
+                w = w * m % qi
+            term = ma.shoup_mul_lazy(ys[j], w, hm.shoup(w, qi), qi)
+            acc = ma.add_lazy(acc, term, two_qi)
+        diff = ma.sub_lazy(x[..., i, :], acc, two_qi)
+        w_inv = 1
+        for m in mods[:i]:
+            w_inv = w_inv * m % qi
+        w_inv = hm.modinv(w_inv, qi)
+        y_i = ma.shoup_mul_lazy(diff, w_inv, hm.shoup(w_inv, qi), qi)
+        ys.append(ma.reduce_strict(y_i, qi))
+    return torch.stack(ys, dim=-2)

@@ -1,0 +1,259 @@
+"""Parameter objects and the immutable precomputed-table Context (port of
+hehub_tpu/core/context.py, CKKS part).
+
+Tables are computed once, on the host, in numpy uint32 — bitwise equal to
+the JAX package's. Ops take them as device tensors through
+`Context.device_rows`, which caches one tensor per (table, limb ids,
+device, dtype) on the context.
+
+Layout: a context covers M = len(moduli) + len(special_mods) limbs, the
+ciphertext chain q_0..q_{L-1} followed by the key-switching special
+prime(s).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from hehub_tpu_torch.utils import hostmath as hm
+
+U32 = np.uint32
+U64 = np.uint64
+
+
+@dataclasses.dataclass(frozen=True)
+class RlweParams:
+    """Static RLWE parameters. `special_mod` is one prime or a tuple of
+    primes (the key-switching specials)."""
+
+    dimension: int
+    moduli: Tuple[int, ...]
+    special_mod: Optional[object] = None  # int | Tuple[int, ...] | None
+
+    def __post_init__(self):
+        n = self.dimension
+        if n & (n - 1) or n < 8:
+            raise ValueError("dimension must be a power of two >= 8")
+        if self.special_mod is not None and not isinstance(
+            self.special_mod, (int, np.integer)
+        ):
+            object.__setattr__(self, "special_mod", tuple(self.special_mod))
+        all_mods = self.moduli + self.special_mods
+        if len(set(all_mods)) != len(all_mods):
+            raise ValueError("moduli must be distinct")
+        for q in all_mods:
+            # lazy [0, 2q) residues in 32 bits need q < 2^30 (4q < 2^32 in
+            # the butterflies); q >= 2^22 keeps the base-2^22 digit planes
+            # of basecnv.decompose_digits valid lazy inputs
+            if not (1 << 22) <= q < (1 << 30):
+                raise ValueError(f"modulus {q} outside the [23, 30]-bit lane range")
+            if q % (2 * n) != 1 or not hm.is_prime(q):
+                raise ValueError(f"{q} is not an NTT prime for n={n}")
+
+    @property
+    def special_mods(self) -> Tuple[int, ...]:
+        if self.special_mod is None:
+            return ()
+        if isinstance(self.special_mod, (int, np.integer)):
+            return (int(self.special_mod),)
+        return tuple(self.special_mod)
+
+
+@dataclasses.dataclass(frozen=True)
+class CkksParams(RlweParams):
+    initial_scaling_factor: float = 1.0
+
+
+# ~128-bit-security total log(Q·P) budgets per dimension (the
+# HomomorphicEncryption.org Standard v1.1 ternary-classical column).
+STD_LOGQP_BUDGET = {1024: 27, 2048: 54, 4096: 109, 8192: 218, 16384: 438, 32768: 881}
+
+
+def create_ckks_params(
+    dimension: int,
+    scaling_bits: int = 28,
+    num_levels: Optional[int] = None,
+    use_security_budget: bool = True,
+    num_special: int = 1,
+) -> CkksParams:
+    """CKKS parameters with 30-bit limbs; the level budget comes from the
+    standard log(QP) table divided into 30-bit primes."""
+    if scaling_bits > 55:
+        raise ValueError(
+            "scaling factors above 2^55 leave no slot-value headroom below "
+            "the 2^62 encode bound"
+        )
+    budget = STD_LOGQP_BUDGET.get(dimension)
+    if num_levels is None:
+        if budget is None:
+            raise ValueError(f"no standard budget for dimension {dimension}")
+        num_levels = budget // 30 - num_special
+        if num_levels < 1:
+            if use_security_budget:
+                raise ValueError(
+                    f"dimension {dimension} cannot fit even one level plus "
+                    f"{num_special} special prime(s) within its {budget}-bit "
+                    "128-bit-security budget; use a larger dimension, or pass "
+                    "num_levels explicitly with use_security_budget=False to "
+                    "build KNOWINGLY-INSECURE parameters"
+                )
+            num_levels = 1
+    if use_security_budget:
+        if budget is None:
+            raise ValueError(
+                f"no standard security budget for dimension {dimension}; "
+                "pass use_security_budget=False to opt out explicitly"
+            )
+        if 30 * (num_levels + num_special) > budget:
+            raise ValueError(
+                f"{num_levels} levels exceed the 128-bit-security budget "
+                f"({budget} bits) for dimension {dimension}"
+            )
+    if 29 * num_levels < scaling_bits + 11:
+        raise ValueError(
+            f"{num_levels} levels of 30-bit primes cannot hold coefficients "
+            f"at a 2^{scaling_bits} scale (fresh ciphertexts would wrap mod Q)"
+        )
+    primes = hm.gen_ntt_primes(30, num_levels + num_special, dimension)
+    return CkksParams(
+        dimension=dimension,
+        moduli=tuple(primes[num_special:]),
+        special_mod=tuple(primes[:num_special]) if num_special != 1 else primes[0],
+        initial_scaling_factor=float(2.0**scaling_bits),
+    )
+
+
+def _bitrev_indices(n: int) -> np.ndarray:
+    logn = n.bit_length() - 1
+    idx = np.arange(n, dtype=np.uint32)
+    rev = np.zeros(n, dtype=np.uint32)
+    for b in range(logn):
+        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    return rev
+
+
+@functools.lru_cache(maxsize=None)
+def _psi_power_table(q: int, n: int, inverse: bool) -> np.ndarray:
+    """psis[j] = ψ^{±bitrev(j, log n)} mod q, uint32 [n]."""
+    psi = hm.negacyclic_psi(q, n)
+    if inverse:
+        psi = hm.modinv(psi, q)
+    powers = np.empty(n, dtype=np.uint64)
+    acc = 1
+    for j in range(n):
+        powers[j] = acc
+        acc = acc * psi % q
+    return powers[_bitrev_indices(n)].astype(np.uint32)
+
+
+def _shoup_np(w: np.ndarray, q: int) -> np.ndarray:
+    return ((w.astype(U64) << U64(32)) // U64(q)).astype(U32)
+
+
+class ModulusTables:
+    """Per-modulus constants and twiddle tables for one prime q."""
+
+    def __init__(self, q: int, n: int):
+        self.q = U32(q)
+        self.two_q = U32(2 * q)
+        self.neg_qinv = U32((-hm.modinv(q, 1 << 32)) % (1 << 32))
+        r = (1 << 32) % q
+        self.r_mod_q = U32(r)
+        self.r_shoup = U32(hm.shoup(r, q))
+        self.r2_mod_q = U32(r * r % q)
+        self.tw_fwd = _psi_power_table(q, n, inverse=False)
+        self.tw_fwd_sh = _shoup_np(self.tw_fwd, q)
+        tw_inv = _psi_power_table(q, n, inverse=True).astype(np.uint64)
+        n_inv = hm.modinv(n, q)
+        # n^-1 folds into the single twiddle of the last inverse stage
+        last = int(tw_inv[1]) * n_inv % q
+        self.tw_inv = tw_inv.astype(U32)
+        self.tw_inv_sh = _shoup_np(self.tw_inv, q)
+        self.tw_inv_last = U32(last)
+        self.tw_inv_last_sh = U32(hm.shoup(last, q))
+        self.n_inv = U32(n_inv)
+        self.n_inv_sh = U32(hm.shoup(n_inv, q))
+
+
+class Context:
+    """Immutable table bundle for a parameter set, hashed by identity.
+
+    Host tables are read-only numpy uint32 ([M, 1] per-limb columns,
+    [M, n] twiddle tables); `device_rows` hands out cached device copies."""
+
+    def __init__(self, params: RlweParams):
+        self.params = params
+        n = params.dimension
+        mods = list(params.moduli) + list(params.special_mods)
+        self.mod_list: Tuple[int, ...] = tuple(mods)
+        n_sp = len(params.special_mods)
+        self.special_indices: Tuple[int, ...] = tuple(
+            range(len(params.moduli), len(mods))
+        )
+        self.num_special = n_sp
+        tabs = [ModulusTables(q, n) for q in mods]
+
+        def col(attr):  # [M, 1] for broadcasting against [..., M, n]
+            return np.asarray([getattr(t, attr) for t in tabs], dtype=U32)[:, None]
+
+        self.q = col("q")
+        self.two_q = col("two_q")
+        self.neg_qinv = col("neg_qinv")
+        self.r_mod_q = col("r_mod_q")
+        self.r_shoup = col("r_shoup")
+        self.r2_mod_q = col("r2_mod_q")
+        self.n_inv = col("n_inv")
+        self.n_inv_sh = col("n_inv_sh")
+        self.tw_inv_last = col("tw_inv_last")
+        self.tw_inv_last_sh = col("tw_inv_last_sh")
+        self.tw_fwd = np.stack([t.tw_fwd for t in tabs])  # [M, n]
+        self.tw_fwd_sh = np.stack([t.tw_fwd_sh for t in tabs])
+        self.tw_inv = np.stack([t.tw_inv for t in tabs])
+        self.tw_inv_sh = np.stack([t.tw_inv_sh for t in tabs])
+        for a in vars(self).values():
+            if isinstance(a, np.ndarray):
+                a.setflags(write=False)
+        self._device_cache: Dict[tuple, torch.Tensor] = {}
+
+    def rows(self, name: str, limb_ids: Tuple[int, ...]) -> np.ndarray:
+        """Host rows of table `name` for `limb_ids`."""
+        return getattr(self, name)[np.asarray(limb_ids, dtype=np.int64)]
+
+    def device_rows(
+        self,
+        name: str,
+        limb_ids: Tuple[int, ...],
+        device: torch.device,
+        dtype: torch.dtype = torch.int64,
+    ) -> torch.Tensor:
+        """Rows of table `name` for `limb_ids` as a contiguous tensor on
+        `device` (int64 holds the uint32 values; int32 holds their bits, as
+        the kernels read them). Cached on the context."""
+        device = torch.device(device)
+        key = (name, tuple(limb_ids), str(device), dtype)
+        t = self._device_cache.get(key)
+        if t is None:
+            host = self.rows(name, limb_ids)  # a fresh contiguous copy
+            host = host.view(np.int32) if dtype == torch.int32 else host.astype(np.int64)
+            t = torch.from_numpy(host).to(device=device)
+            self._device_cache[key] = t
+        return t
+
+    def moduli_of(self, limb_ids: Tuple[int, ...]) -> Tuple[int, ...]:
+        return tuple(self.mod_list[i] for i in limb_ids)
+
+    def __hash__(self):
+        return id(self)
+
+    def __eq__(self, other):
+        return self is other
+
+
+@functools.lru_cache(maxsize=None)
+def make_context(params: RlweParams) -> Context:
+    return Context(params)

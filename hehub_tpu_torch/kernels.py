@@ -1,0 +1,240 @@
+"""Build and binding of the hand-written CUDA kernels (csrc/*.cu).
+
+Each `csrc/*.cu` source is compiled by `nvcc` for sm_90a into its own
+shared library with a plain C interface, at first use, into
+`hehub_tpu_torch/_build/<hash of sources and flags>/`; the libraries are
+loaded with ctypes. The sources build in parallel, one `nvcc` each. Nothing
+is built or loaded when this module is imported.
+
+The launch functions below take int32 CUDA tensors whose bits are the
+uint32 residues, check device, dtype, shape and contiguity, allocate the
+output, launch on PyTorch's current stream, raise on a non-zero
+`cudaGetLastError()`, and count the launch in `LAUNCHES`. They are called by
+the wrappers `ops.ntt.ntt` / `ops.ntt.intt` (K1, K2) and `rlwe.rgsw.ext_prod`
+(K3), which hold the plain PyTorch versions beside them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+from typing import Dict
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent
+_SRC = _PKG / "csrc"
+_BUILD = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# one shared library per source file
+SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu"}
+
+# launches of each kernel since the last reset_launch_counts()
+LAUNCHES: Dict[str, int] = {"ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0}
+
+MIN_N, MAX_N = 1024, 32768
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _build_dir() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(_SRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return _BUILD / h.hexdigest()[:16]
+
+
+def build() -> Dict[str, pathlib.Path]:
+    """Compile every library that is not built yet (in parallel) and return
+    {name: path}. Raises RuntimeError with nvcc's output on failure. The
+    ptxas report (registers, shared memory, spills) of each build is kept
+    beside its library as <name>.ptxas.txt."""
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    procs = {}
+    for name, src in SOURCES.items():
+        if libs[name].exists():
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_SRC / src)]
+        procs[name] = (
+            subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp,
+        )
+    failed = []
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        (out_dir / f"{name}.ptxas.txt").write_text(log)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{SOURCES[name]} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, libs[name])
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return libs
+
+
+def ptxas_report() -> str:
+    """The ptxas output of the current build, one block per library."""
+    out_dir = _build_dir()
+    return "\n".join(
+        (out_dir / f"{name}.ptxas.txt").read_text()
+        for name in SOURCES
+        if (out_dir / f"{name}.ptxas.txt").exists()
+    )
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+
+_ARGTYPES = {
+    "ntt": {
+        "hh_ntt_fwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+        "hh_ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+    },
+    "extprod": {
+        "hh_ext_prod": [_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()[name]))
+    for fn, argtypes in _ARGTYPES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.hh_error_string.argtypes = [ctypes.c_int]
+    lib.hh_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.hh_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def _require(t: torch.Tensor, name: str, device: torch.device, shape=None) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32 (uint32 bits), got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _log_n(n: int) -> int:
+    if n & (n - 1) or not MIN_N <= n <= MAX_N:
+        raise ValueError(f"the CUDA kernels take n a power of two in [{MIN_N}, {MAX_N}], got {n}")
+    return n.bit_length() - 1
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor:
+    """Check and launch hh_<kind> on x [..., L, n]; `per_limb` are the [L, 1]
+    constant tables in the C function's argument order."""
+    dev = x.device
+    L, n = x.shape[-2], x.shape[-1]
+    logn = _log_n(n)
+    _require(x, "x", dev)
+    _require(tw, "tw", dev, (L, n))
+    _require(tw_sh, "tw_sh", dev, (L, n))
+    for i, c in enumerate(per_limb):
+        _require(c, f"per-limb table {i}", dev, (L, 1))
+    out = torch.empty_like(x)
+    rows = x.numel() // n
+    if rows:
+        lib = _lib("ntt")
+        with torch.cuda.device(dev):
+            rc = getattr(lib, f"hh_{kind}")(
+                x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
+                *(c.data_ptr() for c in per_limb), rows, L, logn, _stream(dev),
+            )
+        _check_rc(lib, rc, kind)
+        LAUNCHES[kind] += 1
+    return out
+
+
+def ntt_fwd(x: torch.Tensor, tw, tw_sh, q, two_q) -> torch.Tensor:
+    """K1: forward NTT of x [..., L, n] (int32 bits of lazy residues) under
+    per-limb tables tw/tw_sh [L, n] and q/two_q [L, 1]."""
+    return _launch_ntt("ntt_fwd", x, tw, tw_sh, (q, two_q))
+
+
+def ntt_inv(x: torch.Tensor, tw, tw_sh, q, two_q, w_last, w_last_sh, n_inv, n_inv_sh):
+    """K2: inverse NTT of x [..., L, n]; the last-stage constants
+    w_last/w_last_sh/n_inv/n_inv_sh are [L, 1] like q/two_q."""
+    return _launch_ntt("ntt_inv", x, tw, tw_sh, (q, two_q, w_last, w_last_sh, n_inv, n_inv_sh))
+
+
+def ext_prod(digits: torch.Tensor, key: torch.Tensor, tw, tw_sh, q, two_q, neg_qinv):
+    """K3: fused alpha=1 external product.
+
+    digits: [R, l, n] strict coefficient-form digits; key: [rows >= l, 2,
+    L_ext, n] Montgomery-domain RGSW rows (any strides, unit stride on the
+    last axis); tw/tw_sh [L_ext, n], q/two_q/neg_qinv [L_ext, 1] of the
+    extended limbs. Returns out [2, R, L_ext, n]: c0 = out[0], c1 = out[1]."""
+    dev = digits.device
+    if digits.dim() != 3 or key.dim() != 4:
+        raise ValueError("ext_prod takes digits [R, l, n] and key [rows, 2, L_ext, n]")
+    R, l, n = digits.shape
+    L_ext = key.shape[2]
+    logn = _log_n(n)
+    _require(digits, "digits", dev)
+    if key.shape[0] < l or key.shape[1] != 2 or key.shape[3] != n:
+        raise ValueError(f"key shape {tuple(key.shape)} does not fit digits {tuple(digits.shape)}")
+    if not key.is_cuda or key.device != dev or key.dtype != torch.int32 or key.stride(3) != 1:
+        raise ValueError("key must be an int32 CUDA tensor on the digits' device "
+                         "with unit stride on its last axis")
+    for t, nm, shp in ((tw, "tw", (L_ext, n)), (tw_sh, "tw_sh", (L_ext, n)),
+                       (q, "q", (L_ext, 1)), (two_q, "two_q", (L_ext, 1)),
+                       (neg_qinv, "neg_qinv", (L_ext, 1))):
+        _require(t, nm, dev, shp)
+    out = torch.empty((2, R, L_ext, n), dtype=torch.int32, device=dev)
+    if R == 0:
+        return out
+    lib = _lib("extprod")
+    s = key.stride()
+    with torch.cuda.device(dev):
+        rc = lib.hh_ext_prod(digits.data_ptr(), key.data_ptr(), s[0], s[1], s[2],
+                             tw.data_ptr(), tw_sh.data_ptr(), q.data_ptr(), two_q.data_ptr(),
+                             neg_qinv.data_ptr(), out.data_ptr(), R, l, L_ext, logn,
+                             _stream(dev))
+    _check_rc(lib, rc, "ext_prod")
+    LAUNCHES["ext_prod"] += 1
+    return out

@@ -1,0 +1,179 @@
+"""RGSW ciphertexts and the RNS external product — the key-switching engine
+(port of hehub_tpu/rlwe/rgsw.py, digit grouping alpha=1).
+
+Layout: a key-switching RGSW ciphertext is one int64 tensor
+[rows, 2, L_ext, n] of NTT values in the Montgomery domain (pre-scaled by
+R = 2^32), so the external product's inner products are Montgomery
+multiplies and lazy adds. Row g encrypts s'·B_g with B_g ≡ P (mod q_g) and
+≡ 0 elsewhere; alpha=1 digits are the raw residues of each limb.
+
+`ks_digits` + `ks_contract` are the plain PyTorch external product.
+`ext_prod` launches the fused CUDA kernel K3 (csrc/extprod.cu) for a CUDA
+tensor and runs the plain pair for a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence, Tuple
+
+import torch
+
+from hehub_tpu_torch import kernels
+from hehub_tpu_torch.core import rns
+from hehub_tpu_torch.core.context import Context
+from hehub_tpu_torch.core.rns import NTT, RnsPoly
+from hehub_tpu_torch.ops import modarith as ma
+from hehub_tpu_torch.ops import ntt as nttmod
+from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
+from hehub_tpu_torch.utils import hostmath as hm
+
+_ALPHA_TODO = (
+    "alpha > 1 (hybrid key switching, TPU kernel K4) is not ported yet; "
+    "ROADMAP.md, slice 3"
+)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RgswCt:
+    """data: [rows, 2, L_ext, n] int64 Montgomery-domain NTT values.
+    limb_ids: context limb indices of the L_ext axis (ct limbs + specials).
+    alpha: ciphertext limbs per decomposition digit (row)."""
+
+    data: torch.Tensor
+    limb_ids: Tuple[int, ...]
+    alpha: int = 1
+
+    def __post_init__(self):
+        object.__setattr__(self, "limb_ids", tuple(self.limb_ids))
+
+    @property
+    def rows(self) -> int:
+        return self.data.shape[0]
+
+    def at_level(self, level: int, num_special: int) -> "RgswCt":
+        """Restrict to the digits covering the first `level` ct limbs and
+        the limbs {0..level-1} ∪ specials. At the key's own level this is a
+        view, not a copy."""
+        d_rows = -(-level // self.alpha)
+        sp = len(self.limb_ids) - num_special
+        if level == sp:
+            d = self.data[:d_rows]
+        else:
+            d = torch.cat(
+                [self.data[:d_rows, :, :level], self.data[:d_rows, :, sp:]], dim=2
+            )
+        return RgswCt(d, self.limb_ids[:level] + self.limb_ids[sp:], self.alpha)
+
+
+def rgsw_encrypt_rns(
+    ctx: Context,
+    pt_ntt: torch.Tensor,
+    sk: rlwe_mod.RlweSk,
+    gen: torch.Generator,
+    limb_ids_ext: Tuple[int, ...],
+    basis_rows: Sequence[Sequence[int]],
+    alpha: int = 1,
+    **dbg,
+) -> RgswCt:
+    """RGSW encryption with per-row basis vectors: row g is an RLWE(0)
+    sample over the extended limbs plus pt·basis_rows[g][j] folded into
+    c0's limb j. `pt_ntt`: [len(ids_ext), n] strict values on the
+    generator's device. Output is in the Montgomery domain."""
+    dev = gen.device
+    mods = ctx.moduli_of(limb_ids_ext)
+    k_rows = len(basis_rows)
+    ws = [[int(basis_rows[g][j]) % q for j, q in enumerate(mods)] for g in range(k_rows)]
+    w = torch.tensor(ws, dtype=torch.int64)[:, :, None].to(dev)
+    w_sh = torch.tensor(
+        [[hm.shoup(x, q) for x, q in zip(row, mods)] for row in ws], dtype=torch.int64
+    )[:, :, None].to(dev)
+    ct = rlwe_mod.rlwe_sample(ctx, sk, gen, limb_ids_ext, (k_rows,), **dbg)
+    q = ctx.device_rows("q", limb_ids_ext, dev)
+    two_q = ctx.device_rows("two_q", limb_ids_ext, dev)
+    # pt·B_g folded into c0 (rows with w = 0 contribute exactly 0)
+    row_add = ma.reduce_strict(ma.shoup_mul_lazy(pt_ntt[None], w, w_sh, q), q)
+    c0d = ma.add_lazy(ct.c0.data, row_add, two_q)
+    data = torch.stack([c0d, ct.c1.data], dim=1)  # [rows, 2, L_ext, n]
+    # Montgomery domain: multiply everything by R = 2^32 mod q
+    data = ma.shoup_mul_lazy(
+        data,
+        ctx.device_rows("r_mod_q", limb_ids_ext, dev),
+        ctx.device_rows("r_shoup", limb_ids_ext, dev),
+        q,
+    )
+    return RgswCt(data, limb_ids_ext, alpha)
+
+
+def _check_ext(poly: RnsPoly, rgsw: RgswCt) -> None:
+    if poly.form != NTT:
+        raise ValueError("ext_prod expects NTT form")
+    l = poly.limb_count
+    if rgsw.limb_ids[:l] != poly.limb_ids or len(rgsw.limb_ids) - l < 1:
+        raise ValueError(f"rgsw limbs {rgsw.limb_ids} do not extend poly limbs {poly.limb_ids}")
+    if rgsw.alpha != 1:
+        raise NotImplementedError(_ALPHA_TODO)
+    if l > rgsw.rows:
+        raise ValueError(f"key has {rgsw.rows} digit rows but level {l} needs {l}")
+
+
+def ks_digits(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
+    """Key-switch digit decomposition of `poly` (alpha=1: the strict
+    coefficients of each limb, broadcast across the extended limbs), in NTT
+    form: [..., l, L_ext, n]. A strict digit < q_i < 2^30 <= 2 q_j is a
+    valid lazy input under every 30-bit q_j."""
+    _check_ext(poly, rgsw)
+    d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly)).data
+    l, n = poly.limb_count, poly.dimension
+    tiled = d[..., :, None, :].expand(*d.shape[:-2], l, len(rgsw.limb_ids), n)
+    return nttmod.ntt(ctx, tiled.contiguous(), rgsw.limb_ids)
+
+
+def ks_contract(ctx: Context, digits: torch.Tensor, rgsw: RgswCt) -> rlwe_mod.RlweCt:
+    """Montgomery contraction of NTT-form digits [..., D, L_ext, n] against
+    the key rows, accumulated in digit order."""
+    ids_ext = rgsw.limb_ids
+    dev = digits.device
+    q = ctx.device_rows("q", ids_ext, dev)
+    two_q = ctx.device_rows("two_q", ids_ext, dev)
+    neg_qinv = ctx.device_rows("neg_qinv", ids_ext, dev)
+    halves = []
+    for half in range(2):
+        acc = None
+        for g in range(digits.shape[-3]):
+            prod = ma.mont_mul_lazy(digits[..., g, :, :], rgsw.data[g, half], q, neg_qinv)
+            acc = prod if acc is None else ma.add_lazy(acc, prod, two_q)
+        halves.append(RnsPoly(acc, NTT, ids_ext))
+    return rlwe_mod.RlweCt(halves[0], halves[1])
+
+
+def ext_prod(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
+    """External product (alpha=1): poly (NTT form over ct limbs) times the
+    RGSW rows, an RLWE ciphertext over poly limbs + specials, NTT form.
+
+    A CUDA tensor goes through the fused kernel K3: the strict coefficient
+    digits [R, l, n] and the key, read in place through its strides, go in;
+    c0 and c1 come out as [R, L_ext, n] with no digit tensor in device
+    memory. A CPU tensor goes through ks_contract(ks_digits(...)); both are
+    bitwise equal."""
+    _check_ext(poly, rgsw)
+    dev = poly.data.device
+    if dev.type != "cuda":
+        if dev.type != "cpu":
+            raise ValueError(f"no ext_prod for tensors on {dev}")
+        return ks_contract(ctx, ks_digits(ctx, poly, rgsw), rgsw)
+    ids_ext = rgsw.limb_ids
+    l, n = poly.limb_count, poly.dimension
+    batch = poly.batch_shape
+    d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly)).data
+    tabs = [
+        ctx.device_rows(nm, ids_ext, dev, torch.int32)
+        for nm in ("tw_fwd", "tw_fwd_sh", "q", "two_q", "neg_qinv")
+    ]
+    out = kernels.ext_prod(
+        nttmod.to_u32_bits(d.reshape(-1, l, n)),
+        nttmod.to_u32_bits(rgsw.data[:l]),
+        *tabs,
+    )
+    out = nttmod.from_u32_bits(out).reshape(2, *batch, len(ids_ext), n)
+    return rlwe_mod.RlweCt(RnsPoly(out[0], NTT, ids_ext), RnsPoly(out[1], NTT, ids_ext))
