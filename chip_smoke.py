@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
 """Smoke run of hehub_tpu_torch on one NVIDIA card (H100): builds the CUDA
-kernels, holds each against its plain PyTorch version at the main path's
-shapes, then drives the CKKS main path end to end and checks its result.
+kernels, holds each against its plain PyTorch version at the shapes of the
+paths that run it, then drives the CKKS main path and the hybrid
+key-switching path end to end and checks their results.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi); no card, no run;
   2. build: nvcc of hehub_tpu_torch/csrc/*.cu for sm_90a, timed;
-  3. kernels vs plain at the main path's shapes — K1 (forward NTT) and K2
-     (inverse NTT) on [64, 7, 16384], K3 (external product) with R=64,
-     l=7, L_ext=8 — bitwise, each timed with CUDA events beside its plain
-     version;
+  3. kernels vs plain at their paths' shapes — K1 (forward NTT) and K2
+     (inverse NTT) on [64, 7, 16384]; K3 (alpha=1 external product) with
+     R=64, l=7, L_ext=8; K4 (alpha=2 external product) with R=64, D=6,
+     L_ext=14; K5 (FP64 FFT) on [64, 8192] — all bitwise, K5 also against
+     numpy complex128; each timed with CUDA events beside its plain version,
+     beside its bound (the least time the card could take: bytes over the
+     memory rate or operations over the peak rate, the larger), and K5
+     beside torch.fft.fft;
   4. main path at n=16384, 7+1 limbs, batch 64, keys and noise from a
      seeded CUDA generator: keygen, relin and rotation keys, encode +
-     encrypt, mult + relin + rescale, rotate(1), decrypt + decode, against
-     numpy's a*b (max |error| <= 2^-8) and np.roll(a*b, 1) (within the
-     reference algorithm's own error, MAX_ERR_ROT below); every kernel
-     must have launched during this phase; the homomorphic steps replayed
-     on the CPU through the plain versions give bitwise the same
-     ciphertexts; then device times of the steps;
-  5. a `kernels` JSON line; the card line; last, the result line
+     encrypt (device codec), mult + relin + rescale, rotate(1), decrypt +
+     decode (device codec), against numpy's a*b (max |error| <= 2^-8) and
+     np.roll(a*b, 1) (within the reference algorithm's own error,
+     MAX_ERR_ROT below); K1, K2, K3 and K5 must have launched during this
+     phase; the homomorphic steps replayed on the CPU through the plain
+     versions give bitwise the same ciphertexts, and decoding them there
+     through the device codec's plain version gives the same slots; then
+     times of the steps and a profiler trace of each step;
+  5. hybrid path at n=16384 over the full 128-bit budget, 12+2 limbs,
+     alpha=2 keys, batch 64: encode, encrypt, mult + relin + rescale,
+     rotate(1), decrypt, decode against a*b and its roll (<= 2^-8); K4 and
+     K5 must have launched during this phase; a CPU replay of 4 rows gives
+     bitwise the same ciphertexts; then mult and rotate times and traces;
+  6. a `kernels` JSON line; the card line; last, the result line
      {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -34,31 +46,49 @@ import time
 import numpy as np
 import torch
 
-from hehub_tpu_torch import kernels
+from hehub_tpu_torch import config, kernels
 from hehub_tpu_torch.core.context import create_ckks_params, make_context
 from hehub_tpu_torch.core.rns import RnsPoly
 from hehub_tpu_torch.models import ckks
+from hehub_tpu_torch.ops import fft as fftmod
 from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.rlwe import keys as keys_mod
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
-from hehub_tpu_torch.utils.profiling import device_time, step_time
+from hehub_tpu_torch.utils.profiling import device_time, device_trace, step_time
 
 N = 16384
 LEVELS = 7
 BATCH = 64
-# Bounds on the decoded slots of the main path against numpy:
+# hybrid key switching over the full 128-bit budget at n=16384: 12 ciphertext
+# and 2 special primes of 30 bits (420 of 438 bits), digits of 2 limbs
+HYBRID_SPECIAL = 2
+ALPHA = 2
+# Bounds on the decoded slots against numpy:
 # after mult + relin + rescale, the 2^-9-per-operation budget of
-# tests/test_ckks.py, doubled;
+# tests/test_ckks.py, doubled; the same after the hybrid rotate;
 MAX_ERR_MULT = 2.0**-8
-# after rotate(1), the error the reference algorithm itself carries at this
-# shape (hehub_tpu, which the port matches bit for bit): its alpha=1
-# key-switch digits are unsigned, in [0, q_i), and their mean q_i/2 times
-# the key's noise lands on the slots whose root lies next to 1, about
+# after the main path's rotate(1), the error the reference algorithm itself
+# carries at this shape (hehub_tpu, which the port matches bit for bit): its
+# alpha=1 key-switch digits are unsigned, in [0, q_i), and their mean q_i/2
+# times the key's noise lands on the slots whose root lies next to 1, about
 # (n/π)·sqrt(l·n)·σ/Δ = 0.078 at n=16384, l=6, Δ≈2^26 (ROADMAP.md, Queue 3).
 MAX_ERR_ROT = 2.0**-3
 # ciphertexts of the batch replayed on the CPU through the plain versions
 REPLAY_ROWS = 4
+# K5 against numpy complex128, relative to max |X|
+MAX_REL_ERR_FFT = 2.0**-44
+
+# Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
+HBM_BYTES_PER_S = 3.35e12  # data sheet
+FP64_PER_S = 34e12  # data sheet, FP64 outside the tensor cores
+INT32_PER_S = 132 * 64 * 1.98e9  # 64 INT32 lanes per SM (white paper), 132 SMs, 1.98 GHz
+# uint32 operations of csrc/modarith.cuh: a Shoup butterfly is shoup_mul_lazy
+# (4) + add_lazy (3) + sub_lazy (4); a contraction step mont_mul_lazy (7) +
+# add_lazy (3); an FP64 butterfly is 4 products and 6 sums.
+NTT_BUTTERFLY_OPS = 11
+CONTRACT_OPS = 10
+FFT_BUTTERFLY_FLOPS = 10
 
 
 def check(cond, msg):
@@ -74,6 +104,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bound(nbytes, ops, ops_per_s):
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate, the larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes_ms=t_bytes * 1e3, bound_ops_ms=t_ops * 1e3)
+
+
+def ntt_ops(rows, n):
+    return rows * (n // 2) * (n.bit_length() - 1) * NTT_BUTTERFLY_OPS
+
+
 def lazy_residues(gen, shape, two_q):
     return torch.randint(0, 1 << 62, shape, generator=gen, device=gen.device) % two_q
 
@@ -84,11 +127,21 @@ def plain_ext_prod(ctx, digits, rgsw):
     ids_ext = rgsw.limb_ids
     R, l, n = digits.shape
     tiled = digits[:, :, None, :].expand(R, l, len(ids_ext), n).contiguous()
-    tabs = [ctx.device_rows(nm, ids_ext, digits.device) for nm in nttmod.FWD_TABLES]
-    return rgsw_mod.ks_contract(ctx, nttmod.ntt_fwd(tiled, *tabs), rgsw)
+    return plain_ext_prod_conv(ctx, tiled, rgsw)
 
 
-def kernels_vs_plain(ctx, dev):
+def plain_ext_prod_conv(ctx, digits, rgsw):
+    """K4's plain version on converted digits [R, D, L_ext, n]."""
+    tabs = [ctx.device_rows(nm, rgsw.limb_ids, digits.device) for nm in nttmod.FWD_TABLES]
+    return rgsw_mod.ks_contract(ctx, nttmod.ntt_fwd(digits, *tabs), rgsw)
+
+
+def ext_tables(ctx, ids_ext, dev):
+    return [ctx.device_rows(nm, ids_ext, dev, torch.int32)
+            for nm in ("tw_fwd", "tw_fwd_sh", "q", "two_q", "neg_qinv")]
+
+
+def kernels_vs_plain(ctx, hctx, dev):
     """Phase 3. Returns the per-kernel records (launches filled in later)."""
     ids = tuple(range(LEVELS))
     ids_ext = ids + ctx.special_indices
@@ -103,6 +156,7 @@ def kernels_vs_plain(ctx, dev):
     inv32 = [ctx.device_rows(nm, ids, dev, torch.int32) for nm in nttmod.INV_TABLES]
     inv64 = [ctx.device_rows(nm, ids, dev) for nm in nttmod.INV_TABLES]
     x32 = nttmod.to_u32_bits(x)
+    ntt_bytes = 2 * x32.numel() * 4
 
     k1 = nttmod.ntt(ctx, x, ids)
     p1 = nttmod.ntt_fwd(x, *fwd64)
@@ -113,6 +167,7 @@ def kernels_vs_plain(ctx, dev):
         match="bitwise", max_abs_err=int((k1 - p1).abs().max()),
         ms=device_time(lambda: kernels.ntt_fwd(x32, *fwd32)) * 1e3,
         plain_ms=device_time(lambda: nttmod.ntt_fwd(x, *fwd64), 1, 3) * 1e3,
+        library_ms=None, **bound(ntt_bytes, ntt_ops(BATCH * LEVELS, N), INT32_PER_S),
     )
 
     k2 = nttmod.intt(ctx, x, ids)
@@ -127,6 +182,7 @@ def kernels_vs_plain(ctx, dev):
         max_abs_err=int((k2 - p2).abs().max()),
         ms=device_time(lambda: kernels.ntt_inv(x32, *inv32)) * 1e3,
         plain_ms=device_time(lambda: nttmod.ntt_inv(x, *inv64), 1, 3) * 1e3,
+        library_ms=None, **bound(ntt_bytes, ntt_ops(BATCH * LEVELS, N), INT32_PER_S),
     )
 
     sk = rlwe_mod.keygen(ctx, gen)
@@ -135,30 +191,92 @@ def kernels_vs_plain(ctx, dev):
         [torch.randint(0, m, (BATCH, N), generator=gen, device=dev) for m in ctx.moduli_of(ids)],
         dim=1,
     )  # strict coefficient digits [R, l, n]
-    ext32 = [ctx.device_rows(nm, ids_ext, dev, torch.int32)
-             for nm in ("tw_fwd", "tw_fwd_sh", "q", "two_q", "neg_qinv")]
+    ext32 = ext_tables(ctx, ids_ext, dev)
     d32 = nttmod.to_u32_bits(digits)
     key32 = nttmod.to_u32_bits(rlk.data[:LEVELS])
     k3 = nttmod.from_u32_bits(kernels.ext_prod(d32, key32, *ext32))
     p3 = plain_ext_prod(ctx, digits, rlk)
     err3 = max(int((k3[0] - p3.c0.data).abs().max()), int((k3[1] - p3.c1.data).abs().max()))
     check(err3 == 0, "K3 ext_prod differs from ks_contract(ks_digits(...))")
+    L_ext = len(ids_ext)
     records["ext_prod"] = dict(
         route="cuda", source="hehub_tpu_torch/csrc/extprod.cu",
         replaces="hehub_tpu/ops/pallas/extprod_pallas.py:27",
         match="bitwise", max_abs_err=err3,
         ms=device_time(lambda: kernels.ext_prod(d32, key32, *ext32)) * 1e3,
         plain_ms=device_time(lambda: plain_ext_prod(ctx, digits, rlk), 1, 3) * 1e3,
+        library_ms=None,
+        **bound(4 * (d32.numel() + key32.numel() + 2 * BATCH * L_ext * N),
+                ntt_ops(BATCH * LEVELS * L_ext, N) + BATCH * LEVELS * L_ext * N * 2 * CONTRACT_OPS,
+                INT32_PER_S),
     )
-    conv = dict(
+    del digits, d32, k3, p3
+
+    # K4 at the hybrid path's shape: D = 6 digits of the 12 limbs, 14 limbs out
+    h_ids = tuple(range(len(hctx.params.moduli)))
+    h_ext = h_ids + hctx.special_indices
+    D = -(-len(h_ids) // ALPHA)
+    h_sk = rlwe_mod.keygen(hctx, gen)
+    h_rlk = keys_mod.relin_key(hctx, h_sk, gen, alpha=ALPHA)
+    conv = lazy_residues(gen, (BATCH, D, len(h_ext), N), hctx.device_rows("two_q", h_ext, dev))
+    h_ext32 = ext_tables(hctx, h_ext, dev)
+    c32 = nttmod.to_u32_bits(conv)
+    h_key32 = nttmod.to_u32_bits(h_rlk.data[:D])
+    k4 = nttmod.from_u32_bits(kernels.ext_prod_conv(c32, h_key32, *h_ext32))
+    p4 = plain_ext_prod_conv(hctx, conv, h_rlk)
+    err4 = max(int((k4[0] - p4.c0.data).abs().max()), int((k4[1] - p4.c1.data).abs().max()))
+    check(err4 == 0, "K4 ext_prod_conv differs from ks_contract(ntt(digits))")
+    records["ext_prod_conv"] = dict(
+        route="cuda", source="hehub_tpu_torch/csrc/extprod.cu",
+        replaces="hehub_tpu/ops/pallas/extprod_pallas.py:52",
+        match="bitwise", max_abs_err=err4,
+        ms=device_time(lambda: kernels.ext_prod_conv(c32, h_key32, *h_ext32)) * 1e3,
+        plain_ms=device_time(lambda: plain_ext_prod_conv(hctx, conv, h_rlk), 1, 3) * 1e3,
+        library_ms=None,
+        **bound(4 * (c32.numel() + h_key32.numel() + 2 * BATCH * len(h_ext) * N),
+                ntt_ops(c32.numel() // N, N) + c32.numel() * 2 * CONTRACT_OPS, INT32_PER_S),
+    )
+    del conv, c32, k4, p4
+
+    # K5 at the codec's shape: [64, 8192] complex rows in bit-reversed order
+    m = N // 2
+    re = torch.rand((BATCH, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+    im = torch.rand((BATCH, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+    tw_re, tw_im = fftmod._device_tables(m, str(dev))
+    k5 = kernels.fft(re, im, tw_re, tw_im)
+    p5 = fftmod.fft_plain(re, im, m)
+    err5 = max(float((k5[0] - p5[0]).abs().max()), float((k5[1] - p5[1]).abs().max()))
+    check(err5 == 0.0, "K5 fft differs from fft_plain")
+    br = torch.from_numpy(fftmod.bitrev_perm(m)).to(dev)
+    natural = torch.complex(re[:, br], im[:, br])  # the bit reversal is an involution
+    exact = np.fft.fft(natural[:REPLAY_ROWS].cpu().numpy(), axis=-1)
+    got = (k5[0][:REPLAY_ROWS] + 1j * k5[1][:REPLAY_ROWS]).cpu().numpy()
+    rel5 = float(np.abs(got - exact).max() / np.abs(exact).max())
+    check(rel5 <= MAX_REL_ERR_FFT, f"K5 error {rel5} relative to max|X| above 2^-44")
+    records["fft"] = dict(
+        route="cuda", source="hehub_tpu_torch/csrc/fft.cu",
+        replaces="hehub_tpu/ops/pallas/fft_pallas.py:60",
+        match=f"bitwise vs plain; vs numpy complex128 {rel5:.3e} of max|X|",
+        max_abs_err=err5,
+        ms=device_time(lambda: kernels.fft(re, im, tw_re, tw_im)) * 1e3,
+        plain_ms=device_time(lambda: fftmod.fft_plain(re, im, m), 1, 3) * 1e3,
+        library_ms=device_time(lambda: torch.fft.fft(natural)) * 1e3,
+        **bound(4 * re.numel() * 8 + 2 * tw_re.numel() * 8,
+                BATCH * (m // 2) * (m.bit_length() - 1) * FFT_BUTTERFLY_FLOPS, FP64_PER_S),
+    )
+
+    conv_ms = dict(
         to_u32_ms=device_time(lambda: nttmod.to_u32_bits(x)) * 1e3,
         from_u32_ms=device_time(lambda: nttmod.from_u32_bits(x32)) * 1e3,
         key_to_u32_ms=device_time(lambda: nttmod.to_u32_bits(rlk.data[:LEVELS])) * 1e3,
     )
     for name, rec in records.items():
         print(f"[kernels] {name}: {rec['match']}, max_abs_err={rec['max_abs_err']}, "
-              f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
-    print(f"[kernels] int64<->int32 conversions at [{BATCH},{LEVELS},{N}]: {json.dumps(conv)}")
+              f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+              f"(bytes {rec['bound_bytes_ms']:.4f} ms, operations {rec['bound_ops_ms']:.4f} ms), "
+              f"library {rec['library_ms']}")
+    print(f"[kernels] int64<->int32 conversions at [{BATCH},{LEVELS},{N}]: {json.dumps(conv_ms)}")
     return records
 
 
@@ -167,39 +285,55 @@ def _rows_on_cpu(ct, rows):
     return ckks.CkksCt(take(ct.c0), take(ct.c1), ct.scaling_factor)
 
 
-def cpu_replay(ctx, params, ca, cb, rlk, rk, sk, rot, out):
-    """The main path's homomorphic steps again, on the CPU through the plain
-    versions, for the first REPLAY_ROWS ciphertexts: the card's ciphertexts
-    must be bitwise equal, and their decoded slots equal."""
-    key = lambda k: rgsw_mod.RgswCt(k.data.cpu(), k.limb_ids, k.alpha)  # noqa: E731
+def _key_on_cpu(k):
+    return rgsw_mod.RgswCt(k.data.cpu(), k.limb_ids, k.alpha)
+
+
+def _decode_on_cpu(ctx, params, ct, sk):
+    """Decode through the device codec's plain version on the CPU."""
     sk_c = rlwe_mod.RlweSk(sk.coeffs.cpu(), sk.ntt.cpu(), sk.ntt_sh.cpu())
+    old, config.use_device_codec = config.use_device_codec, True
+    try:
+        return ckks.decode(ckks.decrypt(ctx, ct, sk_c), params)
+    finally:
+        config.use_device_codec = old
+
+
+def cpu_replay(tag, ctx, params, ca, cb, rlk, rk, sk, card_cts, out):
+    """The path's homomorphic steps again, on the CPU through the plain
+    versions, for the first REPLAY_ROWS ciphertexts: the card's ciphertexts
+    (mult + rescale, then rotate(1)) must be bitwise equal, and decoding the
+    rotated one through the device codec's plain version must give the card's
+    slots to 1e-12."""
     prod_c = ckks.rescale(ctx, ckks.mult(ctx, _rows_on_cpu(ca, REPLAY_ROWS),
-                                         _rows_on_cpu(cb, REPLAY_ROWS), key(rlk)))
-    rot_c = ckks.rotate(ctx, prod_c, key(rk), 1)
-    card = _rows_on_cpu(rot, REPLAY_ROWS)
-    check(torch.equal(rot_c.c0.data, card.c0.data) and torch.equal(rot_c.c1.data, card.c1.data),
-          "the card's rotate(mult(...)) differs from the plain CPU path")
-    out_c = ckks.decode(ckks.decrypt(ctx, rot_c, sk_c), params)
-    check(np.allclose(out_c, out[:REPLAY_ROWS], rtol=0, atol=1e-12),
-          "decoded slots differ from the plain CPU path")
-    print(f"[main] plain CPU replay of {REPLAY_ROWS} ciphertexts: bitwise equal ciphertexts, "
-          f"equal decoded slots")
+                                         _rows_on_cpu(cb, REPLAY_ROWS), _key_on_cpu(rlk)))
+    rot_c = ckks.rotate(ctx, prod_c, _key_on_cpu(rk), 1)
+    for got, card in zip((prod_c, rot_c), card_cts):
+        card = _rows_on_cpu(card, REPLAY_ROWS)
+        check(torch.equal(got.c0.data, card.c0.data) and torch.equal(got.c1.data, card.c1.data),
+              f"{tag}: the card's ciphertexts differ from the plain CPU path")
+    out_c = _decode_on_cpu(ctx, params, rot_c, sk)
+    diff = float(np.abs(out_c - out[:REPLAY_ROWS]).max())
+    check(diff <= 1e-12, f"{tag}: decoded slots differ from the plain CPU path by {diff}")
+    print(f"[{tag}] plain CPU replay of {REPLAY_ROWS} ciphertexts: bitwise equal ciphertexts, "
+          f"decoded slots within {diff:.3e} of the card's")
 
 
-def main_path(params, ctx, dev):
-    """Phase 4: returns (launch counts of the run, metrics)."""
-    ids = tuple(range(LEVELS))
-    rng = np.random.default_rng(0)
+def run_path(tag, params, ctx, dev, alpha, seed):
+    """Keygen, keys, encode + encrypt, mult + relin + rescale, rotate(1),
+    decrypt + decode, between a reset and a read of the launch counts.
+    Returns (launches, errors, state for the replay and the timings)."""
+    rng = np.random.default_rng(seed)
     a = rng.uniform(-1, 1, (BATCH, N // 2))
     b = rng.uniform(-1, 1, (BATCH, N // 2))
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(seed)
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     sk = rlwe_mod.keygen(ctx, gen)
-    rlk = keys_mod.relin_key(ctx, sk, gen)
-    rk = keys_mod.rot_key(ctx, sk, 1, gen)
+    rlk = keys_mod.relin_key(ctx, sk, gen, alpha=alpha)
+    rk = keys_mod.rot_key(ctx, sk, 1, gen, alpha=alpha)
     ca = ckks.encrypt(ctx, ckks.encode(a, params, device=dev), sk, gen)
     cb = ckks.encrypt(ctx, ckks.encode(b, params, device=dev), sk, gen)
     prod = ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk))
@@ -210,21 +344,38 @@ def main_path(params, ctx, dev):
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
 
-    check(out.shape == (BATCH, N // 2), f"decoded shape {out.shape}")
-    check(bool(np.isfinite(out).all() and np.isfinite(out_prod).all()), "decoded values not finite")
-    check(rot.limb_ids == ids[:-1], f"result limbs {rot.limb_ids}")
+    L = len(params.moduli)
+    check(out.shape == (BATCH, N // 2), f"{tag}: decoded shape {out.shape}")
+    check(bool(np.isfinite(out).all() and np.isfinite(out_prod).all()),
+          f"{tag}: decoded values not finite")
+    check(rot.limb_ids == tuple(range(L - 1)), f"{tag}: result limbs {rot.limb_ids}")
     err_mult = float(np.abs(out_prod - a * b).max())
-    err = float(np.abs(out - np.roll(a * b, 1, axis=-1)).max())
-    print(f"[main] n={N} L={LEVELS}+1 batch={BATCH}: keygen..decode {wall:.3f} s (host clock), "
-          f"max|err| of mult+rescale vs a*b = {err_mult:.3e} (log2 {np.log2(err_mult):.2f}), "
-          f"of rotate(mult, 1) vs np.roll(a*b, 1) = {err:.3e} (log2 {np.log2(err):.2f}), "
+    err_rot = float(np.abs(out - np.roll(a * b, 1, axis=-1)).max())
+    print(f"[{tag}] n={N} L={L}+{len(params.special_mods)} alpha={alpha} batch={BATCH}: "
+          f"keygen..decode {wall:.3f} s (host clock), max|err| of mult+rescale vs a*b = "
+          f"{err_mult:.3e} (log2 {np.log2(err_mult):.2f}), of rotate(mult, 1) vs "
+          f"np.roll(a*b, 1) = {err_rot:.3e} (log2 {np.log2(err_rot):.2f}), "
           f"launches {json.dumps(launches)}")
-    check(err_mult <= MAX_ERR_MULT, f"mult decode error {err_mult} above {MAX_ERR_MULT}")
-    check(err <= MAX_ERR_ROT, f"rotate decode error {err} above {MAX_ERR_ROT}")
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
-    cpu_replay(ctx, params, ca, cb, rlk, rk, sk, rot, out)
+    state = dict(a=a, b=b, gen=gen, sk=sk, rlk=rlk, rk=rk, ca=ca, cb=cb, prod=prod, rot=rot,
+                 out=out)
+    return launches, err_mult, err_rot, state
 
+
+def main_path(params, ctx, dev):
+    """Phase 4: returns (launch counts of the run, metrics)."""
+    launches, err_mult, err_rot, s = run_path("main", params, ctx, dev, 1, 0)
+    check(err_mult <= MAX_ERR_MULT, f"mult decode error {err_mult} above {MAX_ERR_MULT}")
+    check(err_rot <= MAX_ERR_ROT, f"rotate decode error {err_rot} above {MAX_ERR_ROT}")
+    for name in ("ntt_fwd", "ntt_inv", "ext_prod", "fft"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the main path")
+    cpu_replay("main", ctx, params, s["ca"], s["cb"], s["rlk"], s["rk"], s["sk"],
+               (s["prod"], s["rot"]), s["out"])
+
+    ids = tuple(range(LEVELS))
+    a, sk, gen, ca, cb, prod, rot = (s[k] for k in ("a", "sk", "gen", "ca", "cb", "prod", "rot"))
+    rlk, rk = s["rlk"], s["rk"]
+    encode_encrypt = lambda: ckks.encrypt(ctx, ckks.encode(a, params, device=dev), sk, gen)  # noqa: E731
+    decrypt_decode = lambda: ckks.decode(ckks.decrypt(ctx, rot, sk), params)  # noqa: E731
     x = ca.c0.data
     transforms = BATCH * LEVELS
     metrics = dict(
@@ -234,15 +385,57 @@ def main_path(params, ctx, dev):
             lambda: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk)), 1, 5) * 1e3 / BATCH,
         ckks_rotate_ms_per_op=device_time(lambda: ckks.rotate(ctx, prod, rk, 1), 1, 5)
         * 1e3 / BATCH,
-        ckks_encode_encrypt_ms=step_time(
-            lambda: ckks.encrypt(ctx, ckks.encode(a, params, device=dev), sk, gen)) * 1e3 / BATCH,
-        ckks_decrypt_decode_ms=step_time(
-            lambda: ckks.decode(ckks.decrypt(ctx, rot, sk), params)) * 1e3 / BATCH,
+        ckks_encode_encrypt_ms=device_time(encode_encrypt, 1, 4) * 1e3 / BATCH,
+        ckks_decrypt_decode_ms=device_time(decrypt_decode, 1, 4) * 1e3 / BATCH,
+        ckks_encode_encrypt_host_ms=step_time(encode_encrypt) * 1e3 / BATCH,
+        ckks_decrypt_decode_host_ms=step_time(decrypt_decode) * 1e3 / BATCH,
         mult_max_abs_err=err_mult,
-        rotate_max_abs_err=err,
+        rotate_max_abs_err=err_rot,
     )
-    print("[main] times (ntt/intt/mult/rotate: CUDA events, per transform or per ciphertext; "
-          "encode/decode: host clock per ciphertext of a batch-64 call): " + json.dumps(metrics))
+    print("[main] times (CUDA events per transform or per ciphertext of a batch-64 call; "
+          "*_host_ms: host clock, per ciphertext): " + json.dumps(metrics))
+    print_traces("main", {
+        "encode+encrypt": encode_encrypt,
+        "decrypt+decode": decrypt_decode,
+        "mult+relin+rescale": lambda: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk)),
+        "rotate(1)": lambda: ckks.rotate(ctx, prod, rk, 1),
+    })
+    return launches, metrics
+
+
+def print_traces(tag, steps):
+    for name, fn in steps.items():
+        print(f"[{tag}] torch.profiler trace of one batch-64 {name}: "
+              f"{json.dumps(device_trace(fn))}")
+
+
+def hybrid_path(dev):
+    """Phase 5: the hybrid key-switching path over the full budget. Returns
+    (launch counts of the run, metrics)."""
+    params = create_ckks_params(N, scaling_bits=28, num_special=HYBRID_SPECIAL)
+    ctx = make_context(params)
+    launches, err_mult, err_rot, s = run_path("hybrid", params, ctx, dev, ALPHA, 5)
+    check(err_mult <= MAX_ERR_MULT, f"hybrid mult decode error {err_mult} above {MAX_ERR_MULT}")
+    check(err_rot <= MAX_ERR_MULT, f"hybrid rotate decode error {err_rot} above {MAX_ERR_MULT}")
+    for name in ("ntt_fwd", "ntt_inv", "ext_prod_conv", "fft"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the hybrid path")
+    cpu_replay("hybrid", ctx, params, s["ca"], s["cb"], s["rlk"], s["rk"], s["sk"],
+               (s["prod"], s["rot"]), s["out"])
+    ca, cb, prod, rlk, rk = (s[k] for k in ("ca", "cb", "prod", "rlk", "rk"))
+    metrics = dict(
+        ckks_mult_ms_per_op_hybrid=device_time(
+            lambda: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk)), 1, 5) * 1e3 / BATCH,
+        ckks_rotate_ms_per_op_hybrid=device_time(lambda: ckks.rotate(ctx, prod, rk, 1), 1, 5)
+        * 1e3 / BATCH,
+        mult_max_abs_err_hybrid=err_mult,
+        rotate_max_abs_err_hybrid=err_rot,
+    )
+    print("[hybrid] times (CUDA events, per ciphertext of a batch-64 call): "
+          + json.dumps(metrics))
+    print_traces("hybrid", {
+        "mult+relin+rescale": lambda: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk)),
+        "rotate(1)": lambda: ckks.rotate(ctx, prod, rk, 1),
+    })
     return launches, metrics
 
 
@@ -261,15 +454,21 @@ def main() -> int:
     kernels.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(kernels.SOURCES.values())}")
     for line in kernels.ptxas_report().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             print(f"[build] {line.strip()}")
 
     params = create_ckks_params(N, scaling_bits=28, num_levels=LEVELS)
     ctx = make_context(params)
-    records = kernels_vs_plain(ctx, dev)
-    launches, _ = main_path(params, ctx, dev)
+    hctx = make_context(create_ckks_params(N, scaling_bits=28, num_special=HYBRID_SPECIAL))
+    records = kernels_vs_plain(ctx, hctx, dev)
+    torch.cuda.empty_cache()
+    main_launches, _ = main_path(params, ctx, dev)
+    torch.cuda.empty_cache()
+    hybrid_launches, _ = hybrid_path(dev)
     for k, rec in records.items():
-        rec["launches"] = launches[k]
+        rec["launches"] = main_launches[k] + hybrid_launches[k]
+        rec["launches_by_path"] = {"main": main_launches[k], "hybrid": hybrid_launches[k]}
+        check(rec["launches"] > 0, f"kernel {k} was launched on no path")
     print(json.dumps({"kernels": [dict(name=k, **rec) for k, rec in records.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,8 @@
 """Carry state made by the JAX package into this one.
 
 Every function takes numpy arrays (e.g. `np.asarray` of a hehub_tpu key or
-ciphertext) and returns this package's objects on `device`. JAX's PRNG and
+ciphertext) and returns this package's objects on `device`, the card unless
+the caller asks for the CPU. JAX's PRNG and
 torch's generators cannot agree, so this is how both packages are given the
 same keys and ciphertexts. Nothing here imports JAX.
 """
@@ -19,13 +20,13 @@ from hehub_tpu_torch.rlwe.rgsw import RgswCt
 from hehub_tpu_torch.rlwe.rlwe import RlweSk
 
 
-def _tensor(a, device="cpu", dtype=torch.int64) -> torch.Tensor:
+def _tensor(a, device="cuda", dtype=torch.int64) -> torch.Tensor:
     """A numpy array (uint32 residues, int8 coefficients, ...) as a tensor of
     `dtype` on `device`; uint32 values keep their value in int64."""
     return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device=device, dtype=dtype)
 
 
-def sk_from_numpy(coeffs, ntt, ntt_sh, device="cpu") -> RlweSk:
+def sk_from_numpy(coeffs, ntt, ntt_sh, device="cuda") -> RlweSk:
     """Secret key from its ternary coefficients [n] and strict NTT residues
     and Shoup companions [M, n]."""
     return RlweSk(
@@ -35,17 +36,17 @@ def sk_from_numpy(coeffs, ntt, ntt_sh, device="cpu") -> RlweSk:
     )
 
 
-def rgsw_from_numpy(data, limb_ids: Tuple[int, ...], alpha: int = 1, device="cpu") -> RgswCt:
+def rgsw_from_numpy(data, limb_ids: Tuple[int, ...], alpha: int = 1, device="cuda") -> RgswCt:
     """RGSW / key-switching key from its [rows, 2, L_ext, n] tensor."""
     return RgswCt(_tensor(data, device), tuple(limb_ids), alpha)
 
 
-def poly_from_numpy(data, form: str, limb_ids: Tuple[int, ...], device="cpu") -> RnsPoly:
+def poly_from_numpy(data, form: str, limb_ids: Tuple[int, ...], device="cuda") -> RnsPoly:
     """RnsPoly from its [..., L, n] residues."""
     return RnsPoly(_tensor(data, device), form, tuple(limb_ids))
 
 
-def ct_from_numpy(c0, c1, limb_ids: Tuple[int, ...], scale: float, device="cpu") -> CkksCt:
+def ct_from_numpy(c0, c1, limb_ids: Tuple[int, ...], scale: float, device="cuda") -> CkksCt:
     """NTT-form CKKS ciphertext from its two halves [..., L, n]."""
     return CkksCt(
         poly_from_numpy(c0, "ntt", limb_ids, device),

@@ -1,9 +1,10 @@
-"""RNS base manipulation on the CKKS main path (port of the parts of
-hehub_tpu/core/basecnv.py that it runs): the exact divide-by-last-limb
-with rounding behind rescale and the special-prime drop, the base-2^22
-digit interchange format of encode, and the Garner mixed-radix conversion
-of decode. All exact integer algorithms, elementwise with per-limb host
-constants.
+"""RNS base manipulation of CKKS (port of the CKKS parts of
+hehub_tpu/core/basecnv.py): the exact divide-by-last-limb with rounding
+behind rescale and the special-prime drop, the general k -> m base
+conversion behind hybrid key switching, the base-2^22 digit interchange
+formats of encode (unsigned digits from the host codec, balanced digits
+from the device codec), and the Garner mixed-radix conversion of decode.
+All exact integer algorithms, elementwise with per-limb host constants.
 """
 
 from __future__ import annotations
@@ -88,6 +89,66 @@ def div_last_rounded_pair(ctx: Context, a: RnsPoly, b: RnsPoly) -> Tuple[RnsPoly
 
 
 # ---------------------------------------------------------------------------
+# General k -> m base conversion
+# ---------------------------------------------------------------------------
+
+
+def base_convert(ctx: Context, poly: RnsPoly, dst_ids: Tuple[int, ...],
+                 signed: bool = True) -> RnsPoly:
+    """Fast base conversion of a coeff-form poly over its limbs (product Q)
+    into lazy residues over `dst_ids` of the same integer x ∈ [0, Q), taken
+    signed (centered: x - Q when x >= Q/2) or unsigned.
+
+    With y_i = x_i · (Q/q_i)^{-1} mod q_i, out_j = Σ_i y_i·(Q/q_i mod p_j)
+    − v·(Q mod p_j), where v = floor (unsigned) or round (signed) of
+    Σ_i y_i/q_i, summed in 0.32 fixed point with a uint32 carry chain, as
+    in the reference, whose wraparound is reproduced with `& 0xFFFFFFFF`."""
+    if poly.form != COEFF:
+        raise ValueError("base_convert expects coeff form")
+    if not dst_ids:
+        raise ValueError("base_convert needs at least one destination limb")
+    src_ids = poly.limb_ids
+    src_mods = ctx.moduli_of(src_ids)
+    dst_mods = ctx.moduli_of(dst_ids)
+    dev = poly.data.device
+    Q = 1
+    for q in src_mods:
+        Q *= int(q)
+
+    # 1. y_i = x_i * qhat_inv_i mod q_i, strict
+    w, w_sh = shoup_constants(ctx, [hm.modinv((Q // q) % q, q) for q in src_mods], src_ids, dev)
+    q_src = ctx.device_rows("q", src_ids, dev)
+    y = ma.reduce_strict(ma.shoup_mul_lazy(poly.data, w, w_sh, q_src), q_src)  # [..., k, n]
+
+    # 2. v from z_i ≈ y_i·2^32/q_i: the carries out of the uint32 sum
+    c = [(1 << 64) // q for q in src_mods]
+    c_hi = torch.tensor([ci >> 32 for ci in c], dtype=torch.int64, device=dev)[:, None]
+    c_lo = torch.tensor([ci & ma.MASK32 for ci in c], dtype=torch.int64, device=dev)[:, None]
+    z = (y * c_hi + ma.mul_hi(y, c_lo)) & ma.MASK32
+    lo = torch.zeros_like(z[..., 0, :])
+    carries = torch.zeros_like(lo)
+    for i in range(len(src_mods)):
+        lo_new = (lo + z[..., i, :]) & ma.MASK32
+        carries = carries + (lo_new < z[..., i, :]).to(torch.int64)
+        lo = lo_new
+    v = carries + (lo >= 1 << 31).to(torch.int64) if signed else carries
+
+    # 3. out_j = Σ_i y_i·(Q/q_i mod p_j) − v·(Q mod p_j), lazy in [0, 2p_j),
+    #    for all destination limbs at once: terms [..., m, k, n]
+    qhat = [[(Q // q) % p for q in src_mods] for p in dst_mods]
+    wq = torch.tensor(qhat, dtype=torch.int64, device=dev)[..., None]
+    wq_sh = torch.tensor([[hm.shoup(x, p) for x in row] for row, p in zip(qhat, dst_mods)],
+                         dtype=torch.int64, device=dev)[..., None]
+    q_dst = ctx.device_rows("q", dst_ids, dev)
+    two_p = ctx.device_rows("two_q", dst_ids, dev)
+    terms = ma.shoup_mul_lazy(y[..., None, :, :], wq, wq_sh, q_dst[..., None])
+    acc = ma.reduce_add_lazy(terms, -2, two_p)
+    wQ, wQ_sh = shoup_constants(ctx, [Q % p for p in dst_mods], dst_ids, dev)
+    corr = ma.shoup_mul_lazy(v[..., None, :], wQ, wQ_sh, q_dst)
+    return RnsPoly(ma.sub_lazy(acc, corr, two_p), COEFF, tuple(dst_ids))
+
+
+# ---------------------------------------------------------------------------
 # Digit-form integers: the host -> device interchange format of encode
 # ---------------------------------------------------------------------------
 
@@ -125,6 +186,30 @@ def decompose_digits(ctx: Context, digits, neg, ids: Tuple[int, ...]) -> RnsPoly
         r = ma.add_lazy(r, term, two_q)
     r = torch.where(neg[..., None, :] != 0, ma.neg_lazy(r, two_q), r)
     return RnsPoly(r, COEFF, ids)
+
+
+def decompose_balanced(ctx: Context, digits: torch.Tensor, ids: Tuple[int, ...]) -> RnsPoly:
+    """Residue decomposition of balanced base-2^22 digits on the digits'
+    device: lazy r_j = (d0 + d1·2^22 + d2·2^44) mod q_j, each d_i an integer
+    in (-2^22, 2^22) (ops.fft.balanced_digits). digits: int [..., 3, n].
+
+    Bias trick of the reference: with C = 2^22, each biased digit d_i + C
+    lies in [1, 2^23), a valid lazy input, and Σ (d_i + C)·2^{22i} = value
+    + OFF with OFF = C·(1 + 2^22 + 2^44), which one per-limb addition of
+    −OFF mod q_j removes."""
+    dev = digits.device
+    mods = ctx.moduli_of(ids)
+    q = ctx.device_rows("q", ids, dev)
+    two_q = ctx.device_rows("two_q", ids, dev)
+    C = 1 << DIGIT_BITS
+    biased = digits.to(torch.int64) + C
+    r = biased[..., 0:1, :]  # [..., 1, n] < 2^23
+    for i in range(1, NUM_DIGITS):
+        w, w_sh = shoup_constants(ctx, [(1 << (DIGIT_BITS * i)) % m for m in mods], ids, dev)
+        r = ma.add_lazy(r, ma.shoup_mul_lazy(biased[..., i : i + 1, :], w, w_sh, q), two_q)
+    off = C * (1 + (1 << DIGIT_BITS) + (1 << (2 * DIGIT_BITS)))
+    neg_off = torch.tensor([(-off) % m for m in mods], dtype=torch.int64, device=dev)[:, None]
+    return RnsPoly(ma.add_lazy(r, neg_off, two_q), COEFF, ids)
 
 
 def to_mixed_radix(ctx: Context, data, limb_ids: Tuple[int, ...], k: int):

@@ -6,12 +6,13 @@ shared library with a plain C interface, at first use, into
 loaded with ctypes. The sources build in parallel, one `nvcc` each. Nothing
 is built or loaded when this module is imported.
 
-The launch functions below take int32 CUDA tensors whose bits are the
-uint32 residues, check device, dtype, shape and contiguity, allocate the
-output, launch on PyTorch's current stream, raise on a non-zero
-`cudaGetLastError()`, and count the launch in `LAUNCHES`. They are called by
-the wrappers `ops.ntt.ntt` / `ops.ntt.intt` (K1, K2) and `rlwe.rgsw.ext_prod`
-(K3), which hold the plain PyTorch versions beside them.
+The launch functions below take CUDA tensors (int32 holding the bits of
+uint32 residues; float64 for the FFT), check device, dtype, shape and
+layout, allocate the output, launch on PyTorch's current stream, raise on a
+non-zero `cudaGetLastError()`, and count the launch in `LAUNCHES`. They are
+called by the wrappers `ops.ntt.ntt` / `ops.ntt.intt` (K1, K2),
+`rlwe.rgsw.ext_prod` (K3 at alpha=1, K4 at alpha>1) and `ops.fft.fft` (K5),
+which hold the plain PyTorch versions beside them.
 """
 
 from __future__ import annotations
@@ -36,12 +37,16 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # one shared library per source file
-SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu"}
+SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu"}
 
 # launches of each kernel since the last reset_launch_counts()
-LAUNCHES: Dict[str, int] = {"ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0}
+LAUNCHES: Dict[str, int] = {
+    "ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0, "ext_prod_conv": 0, "fft": 0,
+}
 
 MIN_N, MAX_N = 1024, 32768
+# the FFT's length m = n/2 of the codec's ring dimension n
+MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_N // 2
 
 
 def reset_launch_counts() -> None:
@@ -123,6 +128,11 @@ _ARGTYPES = {
     },
     "extprod": {
         "hh_ext_prod": [_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "hh_ext_prod_conv": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _P],
+    },
+    "fft": {
+        "hh_fft": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
     },
 }
 
@@ -144,11 +154,12 @@ def _check_rc(lib: ctypes.CDLL, rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
 
 
-def _require(t: torch.Tensor, name: str, device: torch.device, shape=None) -> None:
+def _require(t: torch.Tensor, name: str, device: torch.device, shape=None,
+             dtype=torch.int32) -> None:
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name} must be a CUDA tensor on {device}, got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32 (uint32 bits), got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -202,6 +213,44 @@ def ntt_inv(x: torch.Tensor, tw, tw_sh, q, two_q, w_last, w_last_sh, n_inv, n_in
     return _launch_ntt("ntt_inv", x, tw, tw_sh, (q, two_q, w_last, w_last_sh, n_inv, n_inv_sh))
 
 
+def _require_rows(t: torch.Tensor, name: str, device: torch.device) -> None:
+    """An int32 CUDA tensor read through its strides: unit stride on the last
+    axis, every row 16-byte aligned (the kernels load rows as uint4)."""
+    if not t.is_cuda or t.device != device or t.dtype != torch.int32:
+        raise ValueError(f"{name} must be an int32 CUDA tensor on {device}")
+    if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        raise ValueError(f"{name} needs unit stride on its last axis and 16-byte aligned rows")
+
+
+def _launch_ext_prod(kind: str, digits: torch.Tensor, dig_strides, D: int, key: torch.Tensor,
+                     tabs) -> torch.Tensor:
+    """Check the key and the tables of K3/K4 for D digit rows of digits [R,
+    ..., n], allocate out [2, R, L_ext, n] and launch hh_<kind>, whose
+    digit stride arguments `dig_strides` come first when it has them."""
+    dev = digits.device
+    R, n = digits.shape[0], digits.shape[-1]
+    logn = _log_n(n)
+    if key.dim() != 4 or key.shape[0] < D or key.shape[1] != 2 or key.shape[3] != n:
+        raise ValueError(f"key shape {tuple(key.shape)} does not fit {D} digit rows of length {n}")
+    _require_rows(key, "key", dev)
+    L_ext = key.shape[2]
+    shapes = ((L_ext, n), (L_ext, n), (L_ext, 1), (L_ext, 1), (L_ext, 1))
+    for t, nm, shp in zip(tabs, ("tw", "tw_sh", "q", "two_q", "neg_qinv"), shapes):
+        _require(t, nm, dev, shp)
+    out = torch.empty((2, R, L_ext, n), dtype=torch.int32, device=dev)
+    if R == 0:
+        return out
+    lib = _lib("extprod")
+    with torch.cuda.device(dev):
+        rc = getattr(lib, f"hh_{kind}")(
+            digits.data_ptr(), *dig_strides, key.data_ptr(), *key.stride()[:3],
+            *(t.data_ptr() for t in tabs), out.data_ptr(), R, D, L_ext, logn, _stream(dev),
+        )
+    _check_rc(lib, rc, kind)
+    LAUNCHES[kind] += 1
+    return out
+
+
 def ext_prod(digits: torch.Tensor, key: torch.Tensor, tw, tw_sh, q, two_q, neg_qinv):
     """K3: fused alpha=1 external product.
 
@@ -209,32 +258,49 @@ def ext_prod(digits: torch.Tensor, key: torch.Tensor, tw, tw_sh, q, two_q, neg_q
     L_ext, n] Montgomery-domain RGSW rows (any strides, unit stride on the
     last axis); tw/tw_sh [L_ext, n], q/two_q/neg_qinv [L_ext, 1] of the
     extended limbs. Returns out [2, R, L_ext, n]: c0 = out[0], c1 = out[1]."""
-    dev = digits.device
-    if digits.dim() != 3 or key.dim() != 4:
-        raise ValueError("ext_prod takes digits [R, l, n] and key [rows, 2, L_ext, n]")
-    R, l, n = digits.shape
-    L_ext = key.shape[2]
-    logn = _log_n(n)
-    _require(digits, "digits", dev)
-    if key.shape[0] < l or key.shape[1] != 2 or key.shape[3] != n:
-        raise ValueError(f"key shape {tuple(key.shape)} does not fit digits {tuple(digits.shape)}")
-    if not key.is_cuda or key.device != dev or key.dtype != torch.int32 or key.stride(3) != 1:
-        raise ValueError("key must be an int32 CUDA tensor on the digits' device "
-                         "with unit stride on its last axis")
-    for t, nm, shp in ((tw, "tw", (L_ext, n)), (tw_sh, "tw_sh", (L_ext, n)),
-                       (q, "q", (L_ext, 1)), (two_q, "two_q", (L_ext, 1)),
-                       (neg_qinv, "neg_qinv", (L_ext, 1))):
-        _require(t, nm, dev, shp)
-    out = torch.empty((2, R, L_ext, n), dtype=torch.int32, device=dev)
-    if R == 0:
-        return out
-    lib = _lib("extprod")
-    s = key.stride()
-    with torch.cuda.device(dev):
-        rc = lib.hh_ext_prod(digits.data_ptr(), key.data_ptr(), s[0], s[1], s[2],
-                             tw.data_ptr(), tw_sh.data_ptr(), q.data_ptr(), two_q.data_ptr(),
-                             neg_qinv.data_ptr(), out.data_ptr(), R, l, L_ext, logn,
-                             _stream(dev))
-    _check_rc(lib, rc, "ext_prod")
-    LAUNCHES["ext_prod"] += 1
-    return out
+    if digits.dim() != 3:
+        raise ValueError("ext_prod takes digits [R, l, n]")
+    _require(digits, "digits", digits.device)
+    return _launch_ext_prod("ext_prod", digits, (), digits.shape[1], key,
+                            (tw, tw_sh, q, two_q, neg_qinv))
+
+
+def ext_prod_conv(digits: torch.Tensor, key: torch.Tensor, tw, tw_sh, q, two_q, neg_qinv):
+    """K4: fused alpha>1 (hybrid) external product on digits already
+    base-converted into every extended limb.
+
+    digits: [R, D, L_ext, n], lazy in [0, 2 q_j) under limb j (any strides,
+    unit stride on the last axis); key, tables and output as ext_prod, with
+    D digit rows of the key."""
+    if digits.dim() != 4 or digits.shape[2] != key.shape[2]:
+        raise ValueError(f"ext_prod_conv takes digits [R, D, L_ext, n] with the key's L_ext, "
+                         f"got {tuple(digits.shape)} and key {tuple(key.shape)}")
+    _require_rows(digits, "digits", digits.device)
+    return _launch_ext_prod("ext_prod_conv", digits, digits.stride()[:3], digits.shape[1], key,
+                            (tw, tw_sh, q, two_q, neg_qinv))
+
+
+def fft(re: torch.Tensor, im: torch.Tensor, tw_re: torch.Tensor, tw_im: torch.Tensor):
+    """K5: the natural-order forward DFT of each row of re + i·im [..., m]
+    (float64, rows given in bit-reversed order), under the compact per-stage
+    twiddles tw_re/tw_im [m - 1] of ops.fft.fft_tables. Returns (re, im)."""
+    dev = re.device
+    m = re.shape[-1]
+    if m & (m - 1) or not MIN_FFT_M <= m <= MAX_FFT_M:
+        raise ValueError(f"the FFT kernel takes m a power of two in [{MIN_FFT_M}, {MAX_FFT_M}], "
+                         f"got {m}")
+    _require(re, "re", dev, dtype=torch.float64)
+    _require(im, "im", dev, tuple(re.shape), torch.float64)
+    _require(tw_re, "tw_re", dev, (m - 1,), torch.float64)
+    _require(tw_im, "tw_im", dev, (m - 1,), torch.float64)
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    rows = re.numel() // m
+    if rows:
+        lib = _lib("fft")
+        with torch.cuda.device(dev):
+            rc = lib.hh_fft(re.data_ptr(), im.data_ptr(), out_re.data_ptr(), out_im.data_ptr(),
+                            tw_re.data_ptr(), tw_im.data_ptr(), rows, m.bit_length() - 1,
+                            _stream(dev))
+        _check_rc(lib, rc, "fft")
+        LAUNCHES["fft"] += 1
+    return out_re, out_im

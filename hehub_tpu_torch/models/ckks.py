@@ -1,13 +1,17 @@
 """CKKS: approximate-complex SIMD homomorphic encryption (port of
-hehub_tpu/models/ckks.py: the host codec and the ciphertext operations).
+hehub_tpu/models/ckks.py: the two codecs and the ciphertext operations).
 
-Encoding runs the float64 host codec of the JAX package: one n/2-point FFT
-per batch (the X^{n/2} = √−1 identity) and an exact base-2^22 digit split
-on the host, then the residue decomposition on the device. Decoding runs
-the Garner mixed-radix conversion on the device, copies the K digit rows
-to the host, and evaluates them in float64 before the inverse slot FFT.
-The JAX package also has a double-float32 device codec (Pallas kernel K5);
-it is not ported yet (ROADMAP.md, slice 2).
+Both codecs rest on one n/2-point FFT per row (the X^{n/2} = √−1 identity
+of _half_transform_tables). The device codec, taken by default for a CUDA
+device (config.use_device_codec), runs it all on the card: encode gathers
+the slots into the FFT's bit-reversed order, runs the FP64 FFT (kernel K5,
+ops/fft.py), twists, scales, splits into balanced base-2^22 digits and
+decomposes them into residues; decode runs the Garner conversion, the
+balanced carry pass and the float64 evaluation there, then the FFT, and
+copies the slots to the host once. It keeps the reference's gates (the
+coefficient bound of its double-float32 FFT); outside them, and on the CPU,
+the float64 host codec runs: FFT and exact digit split on the host, the
+residue work on the device.
 
 Ciphertext operations take the Context and run where the ciphertext's
 tensors lie: on a CUDA device through the NTT, INTT and external-product
@@ -24,9 +28,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from hehub_tpu_torch import config
 from hehub_tpu_torch.core import basecnv, galois, rns
 from hehub_tpu_torch.core.context import CkksParams, Context, make_context
 from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly
+from hehub_tpu_torch.ops import fft as fftmod
 from hehub_tpu_torch.ops import modarith as ma
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
@@ -158,11 +164,102 @@ def _decode_host(coeffs: np.ndarray, n: int, scale: float, count: int):
     return _slots_to_read(coeffs / scale, n, count)
 
 
+# ---------------------------------------------------------------------------
+# Device codec (FP64 FFT kernel K5)
+# ---------------------------------------------------------------------------
+
+# The reference's gates on its device codec, kept as they are: encode when
+# every coefficient scale·max|z| is at most 2^43, decode when the scale is
+# at most 2^43 and the value spans at most 3 limbs.
+DEVICE_COEFF_BOUND = 2.0**43
+DEVICE_DECODE_MAX_LIMBS = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _enc_tables(n: int, device: str):
+    """(perm, sign, tw_re, tw_im) on `device`: the gather of the slots into
+    the FFT's bit-reversed input order, the sign of the imaginary parts
+    (the odd slots are conjugated), and the twist ζ^{-k}/(n/2)."""
+    invj, _, tw_enc, _ = _half_transform_tables(n)
+    perm = invj[fftmod.bitrev_perm(n // 2)]
+    sign = np.where(perm % 2 == 1, -1.0, 1.0)
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                 for t in (perm, sign, tw_enc.real, tw_enc.imag))
+
+
+@functools.lru_cache(maxsize=None)
+def _dec_tables(n: int, count: int, device: str):
+    """(br, tw_re, tw_im, out, odd_sign) on `device`: ifft(x) =
+    conj(fft(conj(x)))/m, so the twist (n/2)·ζ^k is conjugated, divided by
+    m = n/2 and gathered into bit-reversed order; `out` gathers the first
+    `count` slots, and `odd_sign` gives their imaginary parts the sign of
+    conj(...) with the odd slots conjugated once more."""
+    half = n // 2
+    _, j, _, tw_dec = _half_transform_tables(n)
+    br = fftmod.bitrev_perm(half)
+    t_br = np.conjugate(tw_dec)[br] / half
+    odd_sign = np.where(np.arange(count) % 2 == 1, 1.0, -1.0)
+    return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                 for t in (br, t_br.real, t_br.imag, j[:count], odd_sign))
+
+
+def _encode_device(ctx: Context, ids: Tuple[int, ...], data: np.ndarray, scale: float,
+                   device) -> RnsPoly:
+    """Slots [..., n/2] (complex128, host) -> coeff-form residues [..., L, n]
+    on `device`: the host only copies the slots to the device."""
+    n = ctx.params.dimension
+    perm, sign, tw_re, tw_im = _enc_tables(n, str(torch.device(device)))
+    z = torch.view_as_real(torch.from_numpy(data).to(device))
+    ur, ui = fftmod.fft(z[..., 0][..., perm], z[..., 1][..., perm] * sign, n // 2)
+    vr = (ur * tw_re - ui * tw_im) * scale
+    vi = (ur * tw_im + ui * tw_re) * scale
+    digits = fftmod.balanced_digits(torch.cat([vr, vi], dim=-1))
+    return basecnv.decompose_balanced(ctx, digits, ids)
+
+
+def _decode_device(ctx: Context, ids: Tuple[int, ...], data: torch.Tensor, scale: float,
+                   k: int, count: int, probe: bool) -> Optional[np.ndarray]:
+    """Residues [..., L, n] -> the first `count` complex slots (host
+    complex128), all on the data's device but the final copy. With probe,
+    the digit row k is the overflow sentinel: None when it is nonzero
+    (the caller then decodes over the full chain on the host)."""
+    n = ctx.params.dimension
+    half = n // 2
+    mods = ctx.moduli_of(ids)
+    digits = basecnv.to_mixed_radix(ctx, data, ids, k + 1 if probe else k)
+    # balanced carry pass and Σ bal_j·∏_{m<j} q_m, as _mixed_radix_to_float
+    carry = torch.zeros_like(digits[..., 0, :])
+    value = torch.zeros(carry.shape, dtype=torch.float64, device=data.device)
+    weight = 1.0
+    for j in range(digits.shape[-2]):
+        q = int(mods[j])
+        dj = digits[..., j, :] + carry
+        carry = (dj > q // 2).to(torch.int64)
+        bal = dj - carry * q
+        if j == k:
+            if bool(bal.any()):
+                return None
+        else:
+            value = value + bal.to(torch.float64) * weight
+            weight *= float(q)
+    br, tw_re, tw_im, out, odd_sign = _dec_tables(n, count, str(data.device))
+    # times 1/scale, as the reference does: PyTorch on the card turns a
+    # division by a scalar into this product, on the CPU it does not
+    inv_scale = 1.0 / scale
+    ur = (value[..., :half] * inv_scale)[..., br]
+    ui = -(value[..., half:] * inv_scale)[..., br]
+    vr, vi = fftmod.fft(ur * tw_re - ui * tw_im, ur * tw_im + ui * tw_re, half)
+    slots = torch.stack([vr[..., out], vi[..., out] * odd_sign], dim=-1)
+    return torch.view_as_complex(slots).cpu().numpy()
+
+
 def encode(data, params: CkksParams, scaling_factor: Optional[float] = None,
-           level: int = 0, *, device) -> CkksPt:
+           level: int = 0, *, device="cuda") -> CkksPt:
     """SIMD-encode up to n/2 complex numbers per row of `data` ([..., slots])
     into a plaintext [..., L, n] on `device`. `level`=k drops the last k
-    limbs. Coefficient magnitudes up to 2^62 are exact."""
+    limbs. The device codec runs when selected (config.use_device_codec)
+    and every coefficient is at most DEVICE_COEFF_BOUND; the float64 host
+    codec otherwise, exact for coefficient magnitudes up to 2^62."""
     ctx = make_context(params)
     n = params.dimension
     scale = scaling_factor or params.initial_scaling_factor
@@ -170,6 +267,10 @@ def encode(data, params: CkksParams, scaling_factor: Optional[float] = None,
     if data.shape[-1] > n // 2:
         raise ValueError(f"can encode at most {n // 2} slots")
     ids = tuple(range(len(params.moduli) - level))
+    max_abs = float(np.abs(data).max(initial=0.0))
+    if (config.device_codec_selected(device)
+            and scale * max(max_abs, 1.0) <= DEVICE_COEFF_BOUND):
+        return CkksPt(_encode_device(ctx, ids, _pad_slots(data, n), scale, device), float(scale))
     digits, neg = _encode_host(data, n, scale)
     poly = basecnv.decompose_digits(
         ctx,
@@ -224,11 +325,13 @@ def _garner(ctx: Context, poly: RnsPoly, k: int) -> np.ndarray:
 
 def decode(pt: CkksPt, params: CkksParams, count: Optional[int] = None,
            limbs: Optional[int] = None) -> np.ndarray:
-    """Complex slots [..., count] of a coeff-form plaintext. Garner digits
-    over the first K limbs on the device (K from the scaling factor, or
-    `limbs`), float64 evaluation and slot FFT on the host; one extra limb
-    serves as an overflow sentinel, and a nonzero sentinel re-decodes over
-    the full chain."""
+    """Complex slots [..., count] of a coeff-form plaintext, from the value
+    over the first K limbs (K from the scaling factor, or `limbs`); one
+    extra limb serves as an overflow sentinel, and a nonzero sentinel
+    re-decodes over the full chain on the host. The device codec runs when
+    selected (config.use_device_codec), K <= DEVICE_DECODE_MAX_LIMBS and the
+    scale is at most DEVICE_COEFF_BOUND; otherwise the Garner digits go to
+    the host for the float64 evaluation and slot FFT."""
     ctx = make_context(params)
     n = params.dimension
     count = count or n // 2
@@ -237,7 +340,14 @@ def decode(pt: CkksPt, params: CkksParams, count: Optional[int] = None,
         raise ValueError("decode expects coeff form")
     mods = ctx.moduli_of(poly.limb_ids)
     K = min(limbs or decode_limb_count(pt.scaling_factor, poly.limb_ids, mods), len(mods))
-    if limbs is None and K < len(mods):
+    probe = limbs is None and K < len(mods)
+    if (config.device_codec_selected(poly.data.device) and K <= DEVICE_DECODE_MAX_LIMBS
+            and pt.scaling_factor <= DEVICE_COEFF_BOUND):
+        slots = _decode_device(ctx, poly.limb_ids, poly.data, pt.scaling_factor, K, count, probe)
+        if slots is not None:
+            return slots
+        coeffs = _mixed_radix_to_float(_garner(ctx, poly, len(mods)), mods)
+    elif probe:
         coeffs, top = _mixed_radix_to_float(_garner(ctx, poly, K + 1), mods[: K + 1],
                                             split_top=True)
         if np.any(top):

@@ -1,15 +1,18 @@
 """RGSW ciphertexts and the RNS external product — the key-switching engine
-(port of hehub_tpu/rlwe/rgsw.py, digit grouping alpha=1).
+(port of hehub_tpu/rlwe/rgsw.py).
 
 Layout: a key-switching RGSW ciphertext is one int64 tensor
 [rows, 2, L_ext, n] of NTT values in the Montgomery domain (pre-scaled by
 R = 2^32), so the external product's inner products are Montgomery
-multiplies and lazy adds. Row g encrypts s'·B_g with B_g ≡ P (mod q_g) and
-≡ 0 elsewhere; alpha=1 digits are the raw residues of each limb.
+multiplies and lazy adds. Row g encrypts s'·B_g with B_g ≡ P (mod the q_j
+of digit group g) and ≡ 0 elsewhere. alpha=1 digits are the raw residues
+of each limb; alpha>1 (hybrid key switching) digits are the signed base
+conversion of each group of alpha limbs into every extended limb.
 
 `ks_digits` + `ks_contract` are the plain PyTorch external product.
-`ext_prod` launches the fused CUDA kernel K3 (csrc/extprod.cu) for a CUDA
-tensor and runs the plain pair for a CPU tensor.
+`ext_prod` launches the fused CUDA kernel K3 (alpha=1) or K4 (alpha>1),
+both in csrc/extprod.cu, for a CUDA tensor and runs the plain pair for a
+CPU tensor.
 """
 
 from __future__ import annotations
@@ -20,19 +23,13 @@ from typing import Sequence, Tuple
 import torch
 
 from hehub_tpu_torch import kernels
-from hehub_tpu_torch.core import rns
+from hehub_tpu_torch.core import basecnv, rns
 from hehub_tpu_torch.core.context import Context
 from hehub_tpu_torch.core.rns import NTT, RnsPoly
 from hehub_tpu_torch.ops import modarith as ma
 from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
 from hehub_tpu_torch.utils import hostmath as hm
-
-_ALPHA_TODO = (
-    "alpha > 1 (hybrid key switching, TPU kernel K4) is not ported yet; "
-    "ROADMAP.md, slice 3"
-)
-
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class RgswCt:
@@ -105,28 +102,49 @@ def rgsw_encrypt_rns(
     return RgswCt(data, limb_ids_ext, alpha)
 
 
+def _digit_groups(l: int, alpha: int):
+    return [tuple(range(g, min(g + alpha, l))) for g in range(0, l, alpha)]
+
+
 def _check_ext(poly: RnsPoly, rgsw: RgswCt) -> None:
     if poly.form != NTT:
         raise ValueError("ext_prod expects NTT form")
     l = poly.limb_count
     if rgsw.limb_ids[:l] != poly.limb_ids or len(rgsw.limb_ids) - l < 1:
         raise ValueError(f"rgsw limbs {rgsw.limb_ids} do not extend poly limbs {poly.limb_ids}")
-    if rgsw.alpha != 1:
-        raise NotImplementedError(_ALPHA_TODO)
-    if l > rgsw.rows:
-        raise ValueError(f"key has {rgsw.rows} digit rows but level {l} needs {l}")
+    groups = len(_digit_groups(l, rgsw.alpha))
+    if groups > rgsw.rows:
+        raise ValueError(f"key has {rgsw.rows} digit rows but level {l} at "
+                         f"alpha={rgsw.alpha} needs {groups}")
+
+
+def _converted_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
+    """alpha>1 digits in coefficient form: the signed base conversion of
+    each limb group of the strict coeff-form poly `d` into the extended
+    limbs, [..., D, L_ext, n], lazy in [0, 2 q_j)."""
+    groups = _digit_groups(d.limb_count, rgsw.alpha)
+    return torch.stack(
+        [basecnv.base_convert(ctx, rns.take_limbs(d, grp), rgsw.limb_ids, signed=True).data
+         for grp in groups],
+        dim=-3,
+    )
 
 
 def ks_digits(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
-    """Key-switch digit decomposition of `poly` (alpha=1: the strict
-    coefficients of each limb, broadcast across the extended limbs), in NTT
-    form: [..., l, L_ext, n]. A strict digit < q_i < 2^30 <= 2 q_j is a
-    valid lazy input under every 30-bit q_j."""
+    """Key-switch digit decomposition of `poly` in NTT form over the
+    extended limbs: [..., D, L_ext, n]. alpha=1: the strict coefficients of
+    each limb, broadcast across the extended limbs (a strict digit < q_i <
+    2^30 <= 2 q_j is a valid lazy input under every 30-bit q_j); alpha>1:
+    the signed base conversion of each limb group."""
     _check_ext(poly, rgsw)
-    d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly)).data
-    l, n = poly.limb_count, poly.dimension
-    tiled = d[..., :, None, :].expand(*d.shape[:-2], l, len(rgsw.limb_ids), n)
-    return nttmod.ntt(ctx, tiled.contiguous(), rgsw.limb_ids)
+    d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly))
+    if rgsw.alpha == 1:
+        l, n = poly.limb_count, poly.dimension
+        digits = d.data[..., :, None, :].expand(*d.batch_shape, l, len(rgsw.limb_ids), n)
+        digits = digits.contiguous()
+    else:
+        digits = _converted_digits(ctx, d, rgsw)
+    return nttmod.ntt(ctx, digits, rgsw.limb_ids)
 
 
 def ks_contract(ctx: Context, digits: torch.Tensor, rgsw: RgswCt) -> rlwe_mod.RlweCt:
@@ -148,14 +166,15 @@ def ks_contract(ctx: Context, digits: torch.Tensor, rgsw: RgswCt) -> rlwe_mod.Rl
 
 
 def ext_prod(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
-    """External product (alpha=1): poly (NTT form over ct limbs) times the
-    RGSW rows, an RLWE ciphertext over poly limbs + specials, NTT form.
+    """External product: poly (NTT form over ct limbs) times the RGSW rows,
+    an RLWE ciphertext over poly limbs + specials, NTT form.
 
-    A CUDA tensor goes through the fused kernel K3: the strict coefficient
-    digits [R, l, n] and the key, read in place through its strides, go in;
-    c0 and c1 come out as [R, L_ext, n] with no digit tensor in device
-    memory. A CPU tensor goes through ks_contract(ks_digits(...)); both are
-    bitwise equal."""
+    A CUDA tensor goes through a fused kernel that keeps the digit NTTs out
+    of device memory: K3 at alpha=1 takes the strict coefficient digits
+    [R, l, n]; K4 at alpha>1 takes the base-converted coefficient digits
+    [R, D, L_ext, n]; both read the key in place through its strides and
+    give c0 and c1 as [R, L_ext, n]. A CPU tensor goes through
+    ks_contract(ks_digits(...)); both are bitwise equal."""
     _check_ext(poly, rgsw)
     dev = poly.data.device
     if dev.type != "cuda":
@@ -165,15 +184,19 @@ def ext_prod(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
     ids_ext = rgsw.limb_ids
     l, n = poly.limb_count, poly.dimension
     batch = poly.batch_shape
-    d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly)).data
+    d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly))
     tabs = [
         ctx.device_rows(nm, ids_ext, dev, torch.int32)
         for nm in ("tw_fwd", "tw_fwd_sh", "q", "two_q", "neg_qinv")
     ]
-    out = kernels.ext_prod(
-        nttmod.to_u32_bits(d.reshape(-1, l, n)),
-        nttmod.to_u32_bits(rgsw.data[:l]),
-        *tabs,
-    )
+    if rgsw.alpha == 1:
+        out = kernels.ext_prod(nttmod.to_u32_bits(d.data.reshape(-1, l, n)),
+                               nttmod.to_u32_bits(rgsw.data[:l]), *tabs)
+    else:
+        digits = _converted_digits(ctx, d, rgsw)
+        D = digits.shape[-3]
+        out = kernels.ext_prod_conv(
+            nttmod.to_u32_bits(digits.reshape(-1, D, len(ids_ext), n)),
+            nttmod.to_u32_bits(rgsw.data[:D]), *tabs)
     out = nttmod.from_u32_bits(out).reshape(2, *batch, len(ids_ext), n)
     return rlwe_mod.RlweCt(RnsPoly(out[0], NTT, ids_ext), RnsPoly(out[1], NTT, ids_ext))

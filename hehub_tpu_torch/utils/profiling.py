@@ -4,14 +4,16 @@ hehub_tpu/utils/profiling.py).
 `device_time` is the device time per call between CUDA events, after
 warm-up. `step_time` is the host clock around calls that end in
 `torch.cuda.synchronize()`, for work whose host part counts too (the host
-codec). Both refuse to run without a CUDA device: there is no CPU number
-under a device metric's name.
+codec). `device_trace` traces one call with torch.profiler and reports how
+long the device was busy in it and with what. All refuse to run without a
+CUDA device: there is no CPU number under a device metric's name.
 """
 
 from __future__ import annotations
 
+import collections
 import time
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
@@ -48,3 +50,56 @@ def step_time(fn: Callable[[], object], warmup: int = 1, iters: int = 4) -> floa
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters
+
+
+def _activity(name: str) -> str:
+    """The class of a device activity: a copy, one of this package's
+    kernels (by its function name: csrc/ keeps them in an anonymous
+    namespace at top level), or a kernel of PyTorch (in at:: and others)."""
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies"
+    ours = "(anonymous namespace)::"
+    if name.removeprefix("void ").startswith(ours):
+        return name.removeprefix("void ")[len(ours):].split("(")[0].split("<")[0]
+    return "pytorch kernels"
+
+
+def device_trace(fn: Callable[[], object]) -> Dict[str, object]:
+    """One call of `fn()` (after one warm-up call) under torch.profiler:
+    host wall ms of the call (ending in a device sync; the profiler's own
+    overhead included), device busy ms (the union of the kernel and copy
+    intervals on the device), the idle share 1 − busy / wall, and the
+    split of the device time over copies, this package's kernels and
+    PyTorch's kernels, as shares. Busy and idle are None when the trace
+    holds no device activity (the profiler could not trace the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _require_cuda()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted(
+        (e.time_range.start, e.time_range.end, e.name)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
+    )
+    if not spans:
+        return dict(wall_ms=wall * 1e3, busy_ms=None, idle_share=None, split={})
+    by_class: Dict[str, float] = collections.defaultdict(float)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop, name in spans:
+        by_class[_activity(name)] += stop - start
+        busy_us += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    total = sum(by_class.values())
+    return dict(
+        wall_ms=wall * 1e3,
+        busy_ms=busy_us / 1e3,
+        idle_share=1.0 - busy_us / 1e3 / (wall * 1e3),
+        split={k: v / total for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])},
+    )

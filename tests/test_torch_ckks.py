@@ -60,7 +60,7 @@ def _rand(shape):
 
 def _ct_to_port(ct):
     return convert.ct_from_numpy(np.asarray(ct.c0.data), np.asarray(ct.c1.data),
-                                 ct.c0.limb_ids, ct.scaling_factor)
+                                 ct.c0.limb_ids, ct.scaling_factor, device="cpu")
 
 
 def test_slice_bitwise_against_jax():
@@ -78,8 +78,8 @@ def test_slice_bitwise_against_jax():
     want0, want1 = jax_chain(ca, cb)
 
     params, ctx = _port_params()
-    rlk = convert.rgsw_from_numpy(np.asarray(jrlk.data), jrlk.limb_ids)
-    rk = convert.rgsw_from_numpy(np.asarray(jrk.data), jrk.limb_ids)
+    rlk = convert.rgsw_from_numpy(np.asarray(jrlk.data), jrlk.limb_ids, device="cpu")
+    rk = convert.rgsw_from_numpy(np.asarray(jrk.data), jrk.limb_ids, device="cpu")
     prod = tckks.rescale(ctx, tckks.mult(ctx, _ct_to_port(ca), _ct_to_port(cb), rlk))
     got = tckks.rotate(ctx, prod, rk, 1)
     assert got.limb_ids == tuple(range(LEVELS - 1))
@@ -88,7 +88,7 @@ def test_slice_bitwise_against_jax():
     np.testing.assert_array_equal(as_numpy(got.c1.data), np.asarray(want1))
 
     # and it decrypts, under the carried-over key, to the rotated product
-    sk = convert.sk_from_numpy(jsk.coeffs, jsk.ntt, jsk.ntt_sh)
+    sk = convert.sk_from_numpy(jsk.coeffs, jsk.ntt, jsk.ntt_sh, device="cpu")
     out = tckks.decode(tckks.decrypt(ctx, got, sk), params)
     np.testing.assert_allclose(out, np.roll(a * b, 1, axis=-1), atol=2**-8)
 

@@ -1,0 +1,213 @@
+"""The CKKS device codec of hehub_tpu_torch against numpy and hehub_tpu:
+
+(a) the FP64 FFT's plain stage chain against numpy complex128, and the
+    balanced digit split, on their own;
+(b) basecnv.decompose_balanced bitwise against hehub_tpu's;
+(c) the device codec, forced on the CPU (config.use_device_codec = True),
+    against hehub_tpu's float64 host codec (the reference's own df64 codec
+    on XLA:CPU is only float32-accurate, so the FFT is held to numpy);
+(d) on the card: the kernel K5 bitwise against the plain chain, and the
+    device codec against the host codec.
+
+JAX is imported inside the tests that use it, so the card tests also run
+where JAX is not installed."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+from hehub_tpu_torch import config as tconfig
+from hehub_tpu_torch import convert, kernels
+from hehub_tpu_torch.core import basecnv as tbc
+from hehub_tpu_torch.core import context as tctx
+from hehub_tpu_torch.core.rns import COEFF
+from hehub_tpu_torch.models import ckks as tckks
+from hehub_tpu_torch.ops import fft as tfft
+from hehub_tpu_torch.rlwe import rlwe as trlwe
+from tests.torch_support import as_numpy, cuda_device  # noqa: F401
+
+RNG = np.random.default_rng(11)
+N = 1024
+
+
+def _complex_rows(rows, m, rng=RNG):
+    return rng.uniform(-1, 1, (rows, m)) + 1j * rng.uniform(-1, 1, (rows, m))
+
+
+def _fft_inputs(x):
+    """Bit-reversed real and imaginary planes of complex rows x [..., m]."""
+    xb = x[..., tfft.bitrev_perm(x.shape[-1])]
+    return torch.from_numpy(xb.real.copy()), torch.from_numpy(xb.imag.copy())
+
+
+@pytest.mark.parametrize("m", [512, 4096])
+def test_fft_plain_against_numpy(m):
+    x = _complex_rows(3, m)
+    re, im = tfft.fft_plain(*_fft_inputs(x), m)
+    exact = np.fft.fft(x, axis=-1)
+    got = re.numpy() + 1j * im.numpy()
+    assert np.abs(got - exact).max() / np.abs(exact).max() < 1e-13
+    # the dispatcher takes the plain chain for CPU tensors
+    re2, im2 = tfft.fft(*_fft_inputs(x), m)
+    assert torch.equal(re2, re) and torch.equal(im2, im)
+
+
+def test_balanced_digits_recompose_exactly():
+    v = RNG.uniform(-(2.0**45), 2.0**45, (2, 4096))
+    v[0, :8] = [0.5, -0.5, 1.5, -2.5, 2.0**44 + 0.5, -(2.0**44) - 0.5, 2.0**45 - 1, 0.0]
+    d = tfft.balanced_digits(torch.from_numpy(v)).numpy().astype(np.int64)
+    assert d.shape == (2, 3, 4096)
+    assert np.abs(d).max() <= 1 << 21
+    recomposed = d[:, 0] + (d[:, 1] << 22) + (d[:, 2] << 44)
+    np.testing.assert_array_equal(recomposed, np.rint(v).astype(np.int64))
+
+
+def test_decompose_balanced_bitwise():
+    import jax
+
+    from hehub_tpu.core import basecnv as jbc
+    from hehub_tpu.core import context as jcx
+
+    params = dict(scaling_bits=28, num_levels=3, use_security_budget=False)
+    jctx = jcx.make_context(jcx.create_ckks_params(N, **params))
+    ctx = tctx.make_context(tctx.create_ckks_params(N, **params))
+    ids = (0, 1, 2)
+    digits = RNG.integers(-(1 << 22) + 1, 1 << 22, (2, 3, N)).astype(np.int32)
+    want = jax.jit(lambda d: jbc.decompose_balanced(jctx, d, ids).data)(digits)
+    got = tbc.decompose_balanced(ctx, torch.from_numpy(digits), ids)
+    assert got.form == COEFF and got.limb_ids == ids
+    np.testing.assert_array_equal(as_numpy(got.data), np.asarray(want))
+
+
+@pytest.fixture
+def device_codec_forced():
+    old = tconfig.use_device_codec
+    tconfig.use_device_codec = True
+    yield
+    tconfig.use_device_codec = old
+
+
+@functools.lru_cache(maxsize=None)
+def _params(levels=3, scale_bits=28):
+    """(hehub_tpu params, port params) with the same primes: `levels`
+    limbs, one of them the special prime, as tests/test_df64.py's _setup."""
+    from hehub_tpu.core import context as jcx
+
+    kw = dict(scaling_bits=scale_bits, num_levels=levels - 1, use_security_budget=False)
+    return jcx.create_ckks_params(N, **kw), tctx.create_ckks_params(N, **kw)
+
+
+def _pt_to_port(jpt):
+    poly = convert.poly_from_numpy(np.asarray(jpt.poly.data), COEFF, jpt.poly.limb_ids,
+                                   device="cpu")
+    return tckks.CkksPt(poly, jpt.scaling_factor)
+
+
+def test_device_encode_matches_host(device_codec_forced):
+    from hehub_tpu.models import ckks as jckks
+
+    jparams, params = _params()
+    v = _complex_rows(2, N // 2)
+    pt = tckks.encode(v, params, device="cpu")
+    want = np.asarray(jckks.encode(v, jparams).poly.data).astype(np.int64)
+    mods = np.asarray(params.moduli, np.int64)[:, None]
+    diff = (as_numpy(pt.poly.data).astype(np.int64) - want) % mods
+    assert np.minimum(diff, mods - diff).max() <= 1
+    assert np.abs(tckks.decode(pt, params) - v).max() < 1e-6
+
+
+def test_device_decode_matches_host(device_codec_forced):
+    from hehub_tpu.models import ckks as jckks
+
+    jparams, params = _params()
+    v = _complex_rows(2, N // 2)
+    jpt = jckks.encode(v, jparams)
+    got = tckks.decode(_pt_to_port(jpt), params)
+    assert np.abs(got - jckks.decode(jpt, jparams)).max() < 1e-9
+    # fewer slots than n/2: the output gather takes the first `count`
+    part = tckks.decode(_pt_to_port(jpt), params, count=5)
+    np.testing.assert_array_equal(part, got[:, :5])
+
+
+def test_device_round_trip_through_encryption(device_codec_forced):
+    _, params = _params()
+    ctx = tctx.make_context(params)
+    gen = torch.Generator().manual_seed(7)
+    sk = trlwe.keygen(ctx, gen)
+    v = RNG.uniform(-1, 1, N // 2)
+    ct = tckks.encrypt(ctx, tckks.encode(v, params, device="cpu"), sk, gen)
+    got = np.real(tckks.decode(tckks.decrypt(ctx, ct, sk), params))
+    assert np.abs(got - v).max() < 1e-4
+
+
+@pytest.mark.parametrize("constant,fires", [(False, False), (True, True)])
+def test_device_decode_overflow_sentinel(device_codec_forced, monkeypatch, constant, fires):
+    """Decode reads K = 2 limbs at scale 2^28 and checks a third. Slots of
+    |z| ~ 2^12 stay within the K limbs (the sentinel stays quiet, as it does
+    in tests/test_df64.py::test_device_decode_overflow_probe); slots all
+    near 2^32 give a constant coefficient near 2^60, beyond the 2-limb
+    range: the sentinel fires and decode runs again over the full chain on
+    the host (the encode of such slots takes the host codec)."""
+    _, params = _params(levels=4)
+    if constant:
+        v = 2.0**32 + RNG.uniform(-1, 1, N // 2)
+    else:
+        v = RNG.uniform(-1, 1, N // 2) * 2.0**12
+    pt = tckks.encode(v, params, scaling_factor=2.0**28, device="cpu")
+    fired = []
+    device_decode = tckks._decode_device
+
+    def spy(*args):
+        out = device_decode(*args)
+        fired.append(out is None)
+        return out
+
+    monkeypatch.setattr(tckks, "_decode_device", spy)
+    got = np.real(tckks.decode(pt, params))
+    assert fired == [fires]
+    assert np.abs(got - v).max() < 1e-3
+
+
+def test_large_scale_takes_host_codec(device_codec_forced):
+    """Scale 2^48 exceeds the device codec's coefficient bound: encode takes
+    the float64 host codec, bitwise equal to hehub_tpu's, and decode too."""
+    from hehub_tpu.models import ckks as jckks
+
+    jparams, params = _params(levels=4, scale_bits=48)
+    v = RNG.uniform(-1, 1, N // 2)
+    jpt = jckks.encode(v, jparams, scaling_factor=2.0**48)
+    pt = tckks.encode(v, params, scaling_factor=2.0**48, device="cpu")
+    np.testing.assert_array_equal(as_numpy(pt.poly.data), np.asarray(jpt.poly.data))
+    got = tckks.decode(pt, params)
+    np.testing.assert_allclose(got, jckks.decode(jpt, jparams), rtol=0, atol=1e-12)
+    assert np.abs(got - v).max() < 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [512, 8192, 16384])
+def test_fft_kernel_matches_plain_on_card(cuda_device, m):  # noqa: F811
+    x = _complex_rows(3, m, np.random.default_rng(m))
+    want_re, want_im = tfft.fft_plain(*_fft_inputs(x), m)
+    re, im = (t.to(cuda_device) for t in _fft_inputs(x))
+    before = kernels.LAUNCHES["fft"]
+    got_re, got_im = tfft.fft(re, im, m)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fft"] == before + 1
+    assert torch.equal(got_re.cpu(), want_re) and torch.equal(got_im.cpu(), want_im)
+
+
+@pytest.mark.cuda
+def test_device_codec_on_card_against_host(cuda_device):  # noqa: F811
+    params = tctx.create_ckks_params(4096, 28, 3, use_security_budget=False)
+    v = _complex_rows(2, 2048)
+    before = kernels.LAUNCHES["fft"]
+    pt = tckks.encode(v, params, device=cuda_device)
+    host = tckks.encode(v, params, device="cpu")
+    mods = torch.tensor(params.moduli, dtype=torch.int64)[:, None]
+    diff = (pt.poly.data.cpu() - host.poly.data) % mods
+    assert int(torch.minimum(diff, mods - diff).max()) <= 1
+    got = tckks.decode(pt, params)
+    assert kernels.LAUNCHES["fft"] == before + 2
+    assert np.abs(got - tckks.decode(host, params)).max() < 1e-9

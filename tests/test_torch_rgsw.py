@@ -64,8 +64,9 @@ def test_ext_prod_bitwise(level):
 
     want0, want1 = jax_ext_prod(x)
     ctx = _port_ctx()
-    rlk = convert.rgsw_from_numpy(np.asarray(jrlk.data), jrlk.limb_ids, jrlk.alpha)
-    poly = convert.poly_from_numpy(x, trns.NTT, ids)
+    rlk = convert.rgsw_from_numpy(np.asarray(jrlk.data), jrlk.limb_ids, jrlk.alpha,
+                                  device="cpu")
+    poly = convert.poly_from_numpy(x, trns.NTT, ids, device="cpu")
     got = trgsw.ext_prod(ctx, poly, rlk.at_level(level, ctx.num_special))
     assert got.c0.limb_ids == ids + ctx.special_indices
     np.testing.assert_array_equal(as_numpy(got.c0.data), np.asarray(want0))
@@ -92,7 +93,8 @@ def test_div_last_rounded_pair_bitwise():
     want0, want1 = jax_div(a, b)
     ctx = _port_ctx()
     got0, got1 = tbc.div_last_rounded_pair(
-        ctx, convert.poly_from_numpy(a, trns.NTT, ids), convert.poly_from_numpy(b, trns.NTT, ids)
+        ctx, convert.poly_from_numpy(a, trns.NTT, ids, device="cpu"),
+        convert.poly_from_numpy(b, trns.NTT, ids, device="cpu")
     )
     assert got0.limb_ids == ids[:-1]
     np.testing.assert_array_equal(as_numpy(got0.data), np.asarray(want0))
@@ -102,7 +104,7 @@ def test_div_last_rounded_pair_bitwise():
 @pytest.mark.parametrize("level", [LEVELS, 1])
 def test_at_level_matches(level):
     jctx, _, jrlk = _jax_setup()
-    rlk = convert.rgsw_from_numpy(np.asarray(jrlk.data), jrlk.limb_ids)
+    rlk = convert.rgsw_from_numpy(np.asarray(jrlk.data), jrlk.limb_ids, device="cpu")
     got = rlk.at_level(level, jctx.num_special)
     want = jrlk.at_level(level, jctx.num_special)
     assert got.limb_ids == want.limb_ids and got.rows == want.rows
@@ -131,14 +133,6 @@ def test_relin_key_from_torch_keygen_decrypts_to_noise():
         e = torch.where(e > q // 2, e - q, e)
         assert int(e.abs().max()) <= 19
         assert torch.equal(e, e[:1].expand_as(e))  # the same small integers in every limb
-
-
-def test_alpha_above_one_not_ported():
-    ctx = _port_ctx()
-    gen = torch.Generator().manual_seed(4)
-    sk = trlwe.keygen(ctx, gen)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tkeys.relin_key(ctx, sk, gen, alpha=2)
 
 
 @pytest.mark.cuda
@@ -184,7 +178,8 @@ def test_mixed_width_division_and_garner_bitwise():
 
     want0, want1, want_digits = jax_ref(a, b)
     got0, got1 = tbc.div_last_rounded_pair(
-        ctx, convert.poly_from_numpy(a, trns.NTT, ids), convert.poly_from_numpy(b, trns.NTT, ids)
+        ctx, convert.poly_from_numpy(a, trns.NTT, ids, device="cpu"),
+        convert.poly_from_numpy(b, trns.NTT, ids, device="cpu")
     )
     np.testing.assert_array_equal(as_numpy(got0.data), np.asarray(want0))
     np.testing.assert_array_equal(as_numpy(got1.data), np.asarray(want1))
