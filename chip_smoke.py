@@ -9,14 +9,19 @@ key-switching path end to end and checks their results.
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi); no card, no run;
   2. build: nvcc of hehub_tpu_torch/csrc/*.cu for sm_90a, timed;
-  3. kernels vs plain at their paths' shapes — K1 (forward NTT) and K2
+  3. kernels vs plain, at their paths' shapes: K1 (forward NTT) and K2
      (inverse NTT) on [64, 7, 16384]; K3 (alpha=1 external product) with
      R=64, l=7, L_ext=8; K4 (alpha=2 external product) with R=64, D=6,
      L_ext=14; K5 (FP64 FFT) on [64, 8192] — all bitwise, K5 also against
-     numpy complex128; each timed with CUDA events beside its plain version,
-     beside its bound (the least time the card could take: bytes over the
-     memory rate or operations over the peak rate, the larger), and K5
-     beside torch.fft.fft;
+     numpy complex128; each timed twice, kernel-only (the sum of its kernel
+     intervals in a torch.profiler trace, per call) and per call (CUDA
+     events around back-to-back Python calls, the wrapper's host work
+     included), beside its plain version, its bound (the least time the
+     card could take: bytes over the memory rate or operations over the
+     peak rate, the larger) and the ratio of the two, and K5 beside
+     torch.fft.fft, timed both ways too, and kernel-only against it at
+     [130, 8192] and [64, 16384] as well (the card tests hold K3-K5 at
+     every size they take);
   4. main path at n=16384, 7+1 limbs, batch 64, keys and noise from a
      seeded CUDA generator: keygen, relin and rotation keys, encode +
      encrypt (device codec), mult + relin + rescale, rotate(1), decrypt +
@@ -55,7 +60,7 @@ from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.rlwe import keys as keys_mod
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
-from hehub_tpu_torch.utils.profiling import device_time, device_trace, step_time
+from hehub_tpu_torch.utils.profiling import device_time, device_trace, kernel_time, step_time
 
 N = 16384
 LEVELS = 7
@@ -78,6 +83,8 @@ MAX_ERR_ROT = 2.0**-3
 REPLAY_ROWS = 4
 # K5 against numpy complex128, relative to max |X|
 MAX_REL_ERR_FFT = 2.0**-44
+# K5 timed against torch.fft.fft off the codec's [64, 8192]: (rows, m)
+FFT_OTHER_SHAPES = ((130, 8192), (64, 16384))
 
 # Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
 HBM_BYTES_PER_S = 3.35e12  # data sheet
@@ -113,6 +120,12 @@ def bound(nbytes, ops, ops_per_s):
                 bound_bytes_ms=t_bytes * 1e3, bound_ops_ms=t_ops * 1e3)
 
 
+def timed(call):
+    """A kernel wrapper's call time (CUDA events around back-to-back Python
+    calls, host work included) and its kernel's own device time (profiler)."""
+    return dict(ms=device_time(call) * 1e3, kernel_ms=kernel_time(call, ours=True) * 1e3)
+
+
 def ntt_ops(rows, n):
     return rows * (n // 2) * (n.bit_length() - 1) * NTT_BUTTERFLY_OPS
 
@@ -141,6 +154,29 @@ def ext_tables(ctx, ids_ext, dev):
             for nm in ("tw_fwd", "tw_fwd_sh", "q", "two_q", "neg_qinv")]
 
 
+def fft_other_shapes(dev, gen):
+    """K5 against torch.fft.fft kernel-only at shapes off the codec's path:
+    a batch above one wave of row clusters and the largest m. Each checked
+    bitwise against fft_plain first."""
+    out = []
+    for rows, m in FFT_OTHER_SHAPES:
+        re, im = (torch.rand((rows, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+                  for _ in range(2))
+        tw = fftmod._device_tables(m, str(dev))
+        k, p = kernels.fft(re, im, *tw), fftmod.fft_plain(re, im, m)
+        check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]), f"K5 at [{rows}, {m}]")
+        natural = torch.complex(re, im)
+        rec = dict(rows=rows, m=m,
+                   kernel_ms=kernel_time(lambda: kernels.fft(re, im, *tw), ours=True) * 1e3,
+                   library_kernel_ms=kernel_time(lambda: torch.fft.fft(natural), ours=False) * 1e3)
+        rec["kernel_over_library"] = rec["kernel_ms"] / rec["library_kernel_ms"]
+        print(f"[kernels] fft at [{rows}, {m}]: bitwise vs plain, kernel-only "
+              f"{rec['kernel_ms']:.4f} ms, torch.fft.fft kernel-only "
+              f"{rec['library_kernel_ms']:.4f} ms, ratio {rec['kernel_over_library']:.3f}")
+        out.append(rec)
+    return out
+
+
 def kernels_vs_plain(ctx, hctx, dev):
     """Phase 3. Returns the per-kernel records (launches filled in later)."""
     ids = tuple(range(LEVELS))
@@ -165,7 +201,7 @@ def kernels_vs_plain(ctx, hctx, dev):
         route="cuda", source="hehub_tpu_torch/csrc/ntt.cu",
         replaces="hehub_tpu/ops/pallas/ntt_pallas.py:207",
         match="bitwise", max_abs_err=int((k1 - p1).abs().max()),
-        ms=device_time(lambda: kernels.ntt_fwd(x32, *fwd32)) * 1e3,
+        **timed(lambda: kernels.ntt_fwd(x32, *fwd32)),
         plain_ms=device_time(lambda: nttmod.ntt_fwd(x, *fwd64), 1, 3) * 1e3,
         library_ms=None, **bound(ntt_bytes, ntt_ops(BATCH * LEVELS, N), INT32_PER_S),
     )
@@ -180,7 +216,7 @@ def kernels_vs_plain(ctx, hctx, dev):
         replaces="hehub_tpu/ops/pallas/ntt_pallas.py:215",
         match="bitwise vs plain; round trip equal mod q",
         max_abs_err=int((k2 - p2).abs().max()),
-        ms=device_time(lambda: kernels.ntt_inv(x32, *inv32)) * 1e3,
+        **timed(lambda: kernels.ntt_inv(x32, *inv32)),
         plain_ms=device_time(lambda: nttmod.ntt_inv(x, *inv64), 1, 3) * 1e3,
         library_ms=None, **bound(ntt_bytes, ntt_ops(BATCH * LEVELS, N), INT32_PER_S),
     )
@@ -203,7 +239,7 @@ def kernels_vs_plain(ctx, hctx, dev):
         route="cuda", source="hehub_tpu_torch/csrc/extprod.cu",
         replaces="hehub_tpu/ops/pallas/extprod_pallas.py:27",
         match="bitwise", max_abs_err=err3,
-        ms=device_time(lambda: kernels.ext_prod(d32, key32, *ext32)) * 1e3,
+        **timed(lambda: kernels.ext_prod(d32, key32, *ext32)),
         plain_ms=device_time(lambda: plain_ext_prod(ctx, digits, rlk), 1, 3) * 1e3,
         library_ms=None,
         **bound(4 * (d32.numel() + key32.numel() + 2 * BATCH * L_ext * N),
@@ -230,7 +266,7 @@ def kernels_vs_plain(ctx, hctx, dev):
         route="cuda", source="hehub_tpu_torch/csrc/extprod.cu",
         replaces="hehub_tpu/ops/pallas/extprod_pallas.py:52",
         match="bitwise", max_abs_err=err4,
-        ms=device_time(lambda: kernels.ext_prod_conv(c32, h_key32, *h_ext32)) * 1e3,
+        **timed(lambda: kernels.ext_prod_conv(c32, h_key32, *h_ext32)),
         plain_ms=device_time(lambda: plain_ext_prod_conv(hctx, conv, h_rlk), 1, 3) * 1e3,
         library_ms=None,
         **bound(4 * (c32.numel() + h_key32.numel() + 2 * BATCH * len(h_ext) * N),
@@ -258,11 +294,13 @@ def kernels_vs_plain(ctx, hctx, dev):
         replaces="hehub_tpu/ops/pallas/fft_pallas.py:60",
         match=f"bitwise vs plain; vs numpy complex128 {rel5:.3e} of max|X|",
         max_abs_err=err5,
-        ms=device_time(lambda: kernels.fft(re, im, tw_re, tw_im)) * 1e3,
+        **timed(lambda: kernels.fft(re, im, tw_re, tw_im)),
         plain_ms=device_time(lambda: fftmod.fft_plain(re, im, m), 1, 3) * 1e3,
         library_ms=device_time(lambda: torch.fft.fft(natural)) * 1e3,
+        library_kernel_ms=kernel_time(lambda: torch.fft.fft(natural), ours=False) * 1e3,
         **bound(4 * re.numel() * 8 + 2 * tw_re.numel() * 8,
                 BATCH * (m // 2) * (m.bit_length() - 1) * FFT_BUTTERFLY_FLOPS, FP64_PER_S),
+        other_shapes=fft_other_shapes(dev, gen),
     )
 
     conv_ms = dict(
@@ -271,11 +309,20 @@ def kernels_vs_plain(ctx, hctx, dev):
         key_to_u32_ms=device_time(lambda: nttmod.to_u32_bits(rlk.data[:LEVELS])) * 1e3,
     )
     for name, rec in records.items():
+        check(rec["max_abs_err"] == 0, f"{name} is not bitwise equal to its plain version")
+        rec.setdefault("library_kernel_ms", None)
+        rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+        rec["kernel_over_library"] = (rec["kernel_ms"] / rec["library_kernel_ms"]
+                                      if rec["library_kernel_ms"] else None)
         print(f"[kernels] {name}: {rec['match']}, max_abs_err={rec['max_abs_err']}, "
-              f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"kernel-only {rec['kernel_ms']:.4f} ms, call {rec['ms']:.4f} ms, "
+              f"plain {rec['plain_ms']:.4f} ms, "
               f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
               f"(bytes {rec['bound_bytes_ms']:.4f} ms, operations {rec['bound_ops_ms']:.4f} ms), "
-              f"library {rec['library_ms']}")
+              f"kernel-only / bound {rec['kernel_over_bound']:.3f}, "
+              f"library call {rec['library_ms']} ms, library kernel-only "
+              f"{rec['library_kernel_ms']} ms, kernel-only / library kernel-only "
+              f"{rec['kernel_over_library']}")
     print(f"[kernels] int64<->int32 conversions at [{BATCH},{LEVELS},{N}]: {json.dumps(conv_ms)}")
     return records
 

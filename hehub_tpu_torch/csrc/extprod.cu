@@ -1,5 +1,5 @@
 // K3 and K4: the fused external product (RNS key switching), one thread
-// block per (row r, extended output limb j).
+// block of n/32 threads per (row r, extended output limb j).
 //
 // K3 (hh_ext_prod, alpha = 1) replaces the TPU kernel
 // hehub_tpu/ops/pallas/extprod_pallas.py::_kernel, built by make_ext_prod;
@@ -13,15 +13,14 @@
 //       group into every extended limb, lazy in [0, 2 q_j) (any strides).
 // So both run the same block program below on different digit strides.
 //
-// For each digit i < D the block loads the digit row into shared memory,
-// runs the forward NTT under q_j on it (the same device stage chain as K1,
-// which takes lazy [0, 2q) inputs), and multiplies it with the key rows
-// key[i, 0, j] and key[i, 1, j] (Montgomery domain) by mont_mul_lazy. The
-// two products accumulate in registers in digit order, acc = p_0, then
-// acc = add_lazy(acc, p_i), exactly as ks_contract does, so the output is
-// bitwise equal to the plain ks_contract(ntt(digits)) of
-// hehub_tpu_torch/rlwe/rgsw.py (and to hehub_tpu.rlwe.rgsw.ext_prod).
-// The digit NTTs never reach device memory.
+// For each digit i < D the block runs the forward NTT under q_j on the
+// digit row (hh::fwd_stages_reg of ntt.cuh: lazy [0, 2q) inputs) and
+// multiplies it with the key rows key[i, 0, j] and key[i, 1, j] (Montgomery
+// domain) by mont_mul_lazy. The two products accumulate in digit order,
+// acc = p_0, then acc = add_lazy(acc, p_i), exactly as ks_contract does, so
+// the output is bitwise equal to the plain ks_contract(ntt(digits)) of
+// hehub_tpu_torch/rlwe/rgsw.py (and to hehub_tpu.rlwe.rgsw.ext_prod). The
+// digit NTTs never reach device memory.
 //
 // Assumption kept from the reference (hehub_tpu/rlwe/rgsw.py:269-272): a
 // strict K3 digit below q_i is a valid lazy input under every q_j. It holds
@@ -34,13 +33,24 @@
 // [L_ext, R, D, n] and [L_ext, D, 2, n] copies); c0 and c1 are written
 // directly as out[2, R, L_ext, n], the layout of the two output RnsPolys.
 //
-// What bounds it on the H100: D * L_ext digit NTTs per row (56 for K3 at
-// the main path, l=7 and L_ext=8; 84 for K4 at the hybrid path, D=6 and
-// L_ext=14) of log2(n) butterfly stages each dominate the arithmetic. K3
-// reads each digit row L_ext times (from L2 after the first), K4 each of
-// its digit rows once; both read each key column R times (from L2 after
-// the first). The accumulators take 2 n / blockDim registers per thread
-// (32 at n=16384).
+// What bounds it on the H100: the integer operations of D * L_ext digit
+// NTTs per row (56 for K3 at the main path, l=7 and L_ext=8; 84 for K4 at
+// the hybrid path, D=6 and L_ext=14), log2(n) stages of n/2 butterflies
+// each, and of the contraction; bytes are a tenth of that. The first design
+// ran each digit NTT as 14 shared-memory stages, each ending in a barrier,
+// recomputed indices and loaded two twiddles per butterfly, and capped its
+// 1024 threads at 64 registers, 32 of them accumulators (2.7x its bound on
+// an H100). This design gives each thread 16 values of the row (1024
+// threads at n=16384, 32 warps an SM): the digit row loads straight into
+// registers (coalesced, stride n/16), the NTT runs in groups of four
+// stages in registers with three exchanges through padded shared memory
+// (hh::fwd_stages_reg, ntt.cuh), and the thread ends holding 16 contiguous
+// values, so the key rows load as uint4 and the Montgomery products happen
+// in registers. The accumulators (2n words, 128 KB at n=16384) live in
+// shared memory beside the exchange buffer, at e T + tid (no bank
+// conflicts), which leaves each thread under 64 registers with no spills:
+// 32 values a thread with register accumulators (512 threads, 16 warps,
+// spills) ran slower than the first design.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -63,11 +73,25 @@ struct ExtProdArgs {
   int R, D, L_ext, logn;
 };
 
-template <int PER>
-__global__ void __launch_bounds__(1024) ext_prod_kernel(const ExtProdArgs a) {
+// Where a block keeps its two accumulators of n values.
+enum Acc { kAccShared, kAccOutput };
+
+// One block of T = n / 2^EB threads per (row r, extended limb j); thread tid
+// ends each digit's NTT holding the E = 2^EB contiguous values tid E + e.
+// The accumulators live in 2n words of shared memory after the exchange
+// buffer, element e of thread tid at e T + tid (kAccShared), or in the
+// output rows themselves, read and written only by the thread that owns
+// them (kAccOutput).
+template <int LOGN, int EB, Acc ACC>
+__global__ void __launch_bounds__(1 << (LOGN - EB)) ext_prod_kernel(const ExtProdArgs a) {
   extern __shared__ uint4 smem_ep[];
   uint32_t* x = reinterpret_cast<uint32_t*>(smem_ep);
-  const int n = 1 << a.logn;
+  constexpr int n = 1 << LOGN;
+  constexpr int E = 1 << EB;
+  constexpr int T = n / E;
+  uint32_t* acc0_sh = x + ((hh::padded<EB>(n) + 3) & ~3);
+  uint32_t* acc1_sh = acc0_sh + n;
+  const int tid = threadIdx.x;
   const int r = blockIdx.x;
   const int j = blockIdx.y;
   const uint32_t q = a.q[j];
@@ -76,64 +100,113 @@ __global__ void __launch_bounds__(1024) ext_prod_kernel(const ExtProdArgs a) {
   const uint32_t* twj = a.tw + static_cast<long long>(j) * n;
   const uint32_t* tw_shj = a.tw_sh + static_cast<long long>(j) * n;
   const uint32_t* dig = a.digits + r * a.dig_row_stride + j * a.dig_limb_stride;
+  uint4* o0 = reinterpret_cast<uint4*>(a.out + (static_cast<long long>(r) * a.L_ext + j) * n) +
+              tid * (E / 4);
+  uint4* o1 = o0 + static_cast<long long>(a.R) * a.L_ext * n / 4;
 
-  uint32_t acc0[PER];
-  uint32_t acc1[PER];
   for (int i = 0; i < a.D; ++i) {
-    hh::load_row(x, dig + i * a.dig_digit_stride, n);
-    __syncthreads();
-    hh::fwd_stages(x, twj, tw_shj, q, two_q, a.logn);
-    const uint32_t* k0 = a.key + i * a.key_row_stride + j * a.key_limb_stride;
-    const uint32_t* k1 = k0 + a.key_half_stride;
+    const uint32_t* d = dig + i * a.dig_digit_stride;
+    uint32_t v[E];
 #pragma unroll
-    for (int p = 0; p < PER; ++p) {
-      const int e = threadIdx.x + p * blockDim.x;
-      const uint32_t v = x[e];
-      const uint32_t p0 = hh::mont_mul_lazy(v, __ldg(k0 + e), q, neg_qinv);
-      const uint32_t p1 = hh::mont_mul_lazy(v, __ldg(k1 + e), q, neg_qinv);
-      acc0[p] = i == 0 ? p0 : hh::add_lazy(acc0[p], p0, two_q);
-      acc1[p] = i == 0 ? p1 : hh::add_lazy(acc1[p], p1, two_q);
+    for (int e = 0; e < E; ++e) v[e] = __ldg(d + e * T + tid);
+    hh::fwd_stages_reg<LOGN, EB>(v, x, tid, twj, tw_shj, q, two_q);
+    const uint4* k0 =
+        reinterpret_cast<const uint4*>(a.key + i * a.key_row_stride + j * a.key_limb_stride) +
+        tid * (E / 4);
+    const uint4* k1 = k0 + a.key_half_stride / 4;
+#pragma unroll
+    for (int p = 0; p < E / 4; ++p) {
+      const uint4 w0 = __ldg(k0 + p);
+      const uint4 w1 = __ldg(k1 + p);
+      const uint32_t kw0[4] = {w0.x, w0.y, w0.z, w0.w};
+      const uint32_t kw1[4] = {w1.x, w1.y, w1.z, w1.w};
+      uint32_t p0[4], p1[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        p0[c] = hh::mont_mul_lazy(v[4 * p + c], kw0[c], q, neg_qinv);
+        p1[c] = hh::mont_mul_lazy(v[4 * p + c], kw1[c], q, neg_qinv);
+      }
+      if constexpr (ACC == kAccShared) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int at = (4 * p + c) * T + tid;
+          acc0_sh[at] = i == 0 ? p0[c] : hh::add_lazy(acc0_sh[at], p0[c], two_q);
+          acc1_sh[at] = i == 0 ? p1[c] : hh::add_lazy(acc1_sh[at], p1[c], two_q);
+        }
+      } else {
+        if (i > 0) {
+          const uint4 s0 = o0[p], s1 = o1[p];
+          const uint32_t a0[4] = {s0.x, s0.y, s0.z, s0.w};
+          const uint32_t a1[4] = {s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            p0[c] = hh::add_lazy(a0[c], p0[c], two_q);
+            p1[c] = hh::add_lazy(a1[c], p1[c], two_q);
+          }
+        }
+        o0[p] = make_uint4(p0[0], p0[1], p0[2], p0[3]);
+        o1[p] = make_uint4(p1[0], p1[1], p1[2], p1[3]);
+      }
     }
-    __syncthreads();  // the next digit overwrites x
   }
-  uint32_t* o0 = a.out + (static_cast<long long>(r) * a.L_ext + j) * n;
-  uint32_t* o1 = o0 + static_cast<long long>(a.R) * a.L_ext * n;
+  if constexpr (ACC == kAccShared) {
 #pragma unroll
-  for (int p = 0; p < PER; ++p) {
-    const int e = threadIdx.x + p * blockDim.x;
-    o0[e] = acc0[p];
-    o1[e] = acc1[p];
+    for (int p = 0; p < E / 4; ++p) {
+      uint32_t s0[4], s1[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s0[c] = acc0_sh[(4 * p + c) * T + tid];
+        s1[c] = acc1_sh[(4 * p + c) * T + tid];
+      }
+      o0[p] = make_uint4(s0[0], s0[1], s0[2], s0[3]);
+      o1[p] = make_uint4(s1[0], s1[1], s1[2], s1[3]);
+    }
   }
 }
 
-template <int PER>
+// Sets the kernel's dynamic shared memory limit once per device (it may
+// exceed the 48 KB default) and launches it.
+template <int LOGN, int EB, Acc ACC>
 int launch(const ExtProdArgs& a, cudaStream_t stream) {
-  const int n = 1 << a.logn;
-  const size_t smem = static_cast<size_t>(n) * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      ext_prod_kernel<PER>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  constexpr int n = 1 << LOGN;
+  constexpr int words = ((n + (n >> EB) + 3) & ~3) + (ACC == kAccShared ? 2 * n : 0);
+  constexpr size_t smem = words * sizeof(uint32_t);
+  static unsigned configured = 0;  // bit d: done on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 32 || !(configured >> dev & 1u)) {
+    err = cudaFuncSetAttribute(ext_prod_kernel<LOGN, EB, ACC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < 32) configured |= 1u << dev;
+  }
   const dim3 grid(static_cast<unsigned>(a.R), static_cast<unsigned>(a.L_ext));
-  ext_prod_kernel<PER><<<grid, n / PER, smem, stream>>>(a);
+  ext_prod_kernel<LOGN, EB, ACC><<<grid, n >> EB, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// blockDim = n / PER: 512 threads at n=1024, 1024 threads above
+// 16 values a thread and the accumulators in shared memory up to
+// n = 16384 (1024 threads there); at n = 32768 a block cannot hold both
+// the row and the accumulators, so 128 values a thread (256 threads, up to
+// 255 registers each: fewer values spilled) and the accumulators in the
+// output rows.
 int dispatch(const ExtProdArgs& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.logn) {
     case 10:
-      return launch<2>(a, s);
+      return launch<10, 4, kAccShared>(a, s);
     case 11:
-      return launch<2>(a, s);
+      return launch<11, 4, kAccShared>(a, s);
     case 12:
-      return launch<4>(a, s);
+      return launch<12, 4, kAccShared>(a, s);
     case 13:
-      return launch<8>(a, s);
+      return launch<13, 4, kAccShared>(a, s);
     case 14:
-      return launch<16>(a, s);
+      return launch<14, 4, kAccShared>(a, s);
     case 15:
-      return launch<32>(a, s);
+      return launch<15, 7, kAccOutput>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

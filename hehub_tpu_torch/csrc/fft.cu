@@ -9,103 +9,241 @@
 // under the twiddle e^{-i pi j / t}, j = lo mod t. The reference carries
 // each value as four float32 planes (double-float32) because the TPU has no
 // float64; the H100 has native FP64, so a value here is one double. The
-// reference's roll-and-mask butterflies, its full-width [4, log m, m]
-// tables and its 8-row padding served Mosaic only and are gone: the
 // twiddles are the compact per-stage table of hehub_tpu_torch/ops/fft.py
-// (m - 1 complex entries, stage s at offset 2^s - 1), read through L2.
+// (m - 1 complex entries, stage s at offset 2^s - 1), read through L1/L2.
 //
 // Each butterfly is written with __dmul_rn / __dadd_rn / __dsub_rn, so that
-// nvcc contracts nothing into an FMA: the result is bitwise equal to the
-// plain stage chain fft_plain of hehub_tpu_torch/ops/fft.py, whose complex
-// multiply is the same four products and two sums in the same order.
+// nvcc contracts nothing into an FMA: every output is the same chain of
+// correctly rounded operations as in the plain stage chain fft_plain of
+// hehub_tpu_torch/ops/fft.py, and the two are bitwise equal. Regrouping the
+// butterflies over blocks, threads and registers below changes no
+// butterfly's operands.
 //
 // What bounds it on the H100: a row is read once and written once (32 B per
 // complex element in and out); in between, log m stages of m/2 butterflies
 // of 10 FP64 operations each. At [64, 8192] that is 16.8 MB (5.0 us at
 // 3.35 TB/s) against 34 MFLOP (1.0 us at 34 TFLOP/s FP64): memory-bound.
-// The design keeps the row in dynamic shared memory for all stages, one
-// thread block per row, so device memory sees one read and one write of
-// each element: 16 B per complex value, 128 KB at m = 8192 (opted in above
-// 48 KB with cudaFuncSetAttribute). m = 16384 (256 KB) does not fit a
-// block's 227 KB: on a bit-reversed input the first log m - 1 DIT stages
-// are two independent m/2 transforms of the two halves (with the same
-// twiddles, since the table of m/2 is a prefix of the table of m), so the
-// row kernel runs on [2 rows, m/2] and a second, elementwise kernel does
-// the last stage in place. The kernel is CUDA C++ rather than Triton: the
-// transform is a multi-stage in-place exchange through shared memory, not
-// an elementwise pass.
+// The first design (one block per row, the row in shared memory, one
+// shared-memory pass and barrier per stage) filled only 64 of 132 SMs at 64
+// rows and took 5.5x its bound on an H100; two passes of small transforms
+// through L2 filled the card but moved the row through L2 twice more, and
+// lost to cuFFT.
+//
+// The design: one pass, a cluster of two blocks per row, each block holding
+// one contiguous half of the row in its shared memory. On a bit-reversed
+// input the first log m - 1 stages act within each half, with the same
+// twiddles in both (j = lo mod t < m/2), and only the last stage pairs the
+// halves: x[j] with x[j + m/2]. So each block runs log m - 1 stages on its
+// half, the cluster synchronises, and the last stage reads both halves
+// through distributed shared memory, block k taking the butterflies
+// j in [k m/4, (k + 1) m/4) and writing both of their outputs to device
+// memory. A block's m/16 threads each hold E = 8 values in registers and
+// run three stages at a time on them (radix 8): a group takes three index
+// bits [b, b + 3), with one exchange through shared memory between groups
+// (padded by one double in 8: no bank conflicts in any group's layout; 16
+// values a thread, with half the warps, ran slower at m = 8192). The
+// half row is loaded coalesced, all loads in flight before the first store
+// to shared memory. At [64, 8192] that is 128 blocks of 512 threads, 72 KB
+// of shared memory each; every m in [512, 16384] takes the same code
+// (144 KB a block at 16384). The shared-memory limit is set once per
+// device and size, not per call. The kernel is CUDA C++ rather than Triton:
+// it needs clusters, distributed shared memory and register-resident
+// butterflies.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "reglayout.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxRowLogM = 13;  // 8192 complex doubles = 128 KB of shared memory
-
-struct Complex2 {
-  double lo_re, lo_im, hi_re, hi_im;
-};
+constexpr int kElemsLog = 3;  // 8 values per thread
+constexpr int kElems = 1 << kElemsLog;
+constexpr int kClusterLog = 1;  // blocks a row: 2
 
 // (a + w b, a - w b) with w b = (br wr - bi wi, br wi + bi wr), every
-// operation rounded to nearest on its own.
-__device__ __forceinline__ Complex2 butterfly(double ar, double ai, double br, double bi,
-                                              double wr, double wi) {
+// operation rounded to nearest on its own; in place on (ar, ai), (br, bi).
+__device__ __forceinline__ void butterfly(double& ar, double& ai, double& br, double& bi,
+                                          double wr, double wi) {
   const double bwr = __dsub_rn(__dmul_rn(br, wr), __dmul_rn(bi, wi));
   const double bwi = __dadd_rn(__dmul_rn(br, wi), __dmul_rn(bi, wr));
-  return {__dadd_rn(ar, bwr), __dadd_rn(ai, bwi), __dsub_rn(ar, bwr), __dsub_rn(ai, bwi)};
+  const double a_r = ar, a_i = ai;
+  ar = __dadd_rn(a_r, bwr);
+  ai = __dadd_rn(a_i, bwi);
+  br = __dsub_rn(a_r, bwr);
+  bi = __dsub_rn(a_i, bwi);
 }
 
-// One block per row of 2^logm complex values, all logm stages in shared
-// memory.
-__global__ void __launch_bounds__(1024)
-    fft_rows_kernel(const double* __restrict__ in_re, const double* __restrict__ in_im,
-                    double* __restrict__ out_re, double* __restrict__ out_im,
-                    const double* __restrict__ tw_re, const double* __restrict__ tw_im,
-                    int logm) {
-  extern __shared__ double2 smem_fft[];
-  double2* x = smem_fft;
-  const int m = 1 << logm;
-  const long long base = static_cast<long long>(blockIdx.x) * m;
-  for (int e = threadIdx.x; e < m; e += blockDim.x)
-    x[e] = make_double2(in_re[base + e], in_im[base + e]);
-  __syncthreads();
-  for (int s = 0; s < logm; ++s) {
-    const int t = 1 << s;
-    for (int k = threadIdx.x; k < m / 2; k += blockDim.x) {
-      const int j = k & (t - 1);
-      const int lo = ((k >> s) << (s + 1)) + j;
-      const double2 a = x[lo];
-      const double2 b = x[lo + t];
-      const Complex2 c =
-          butterfly(a.x, a.y, b.x, b.y, __ldg(tw_re + t - 1 + j), __ldg(tw_im + t - 1 + j));
-      x[lo] = make_double2(c.lo_re, c.lo_im);
-      x[lo + t] = make_double2(c.hi_re, c.hi_im);
+// The register-group layouts of reglayout.cuh at E = 8 values a thread:
+// value e of thread tid in the group on bits [b, b + 3) of the block's part
+// of the row lies at part_index(tid, e, b), in shared memory at
+// pad(part_index(tid, 0, b)) + slot(e, b).
+__device__ __forceinline__ int part_index(int tid, int e, int b) {
+  return hh::reg_index<kElemsLog>(tid, e, b);
+}
+__host__ __device__ constexpr int pad(int u) { return hh::padded<kElemsLog>(u); }
+__host__ __device__ constexpr int slot(int e, int b) { return hh::slot<kElemsLog>(e, b); }
+
+// DIT stages B + LO .. B + kElemsLog - 1 on the thread's values at
+// part_index(tid, e, B): stage B + sb pairs e with e + 2^sb, twiddle
+// j = lo mod 2^(B + sb) = (tid mod 2^B) + (e mod 2^sb) 2^B.
+template <int B, int LO>
+__device__ __forceinline__ void stage_group(double (&vr)[kElems], double (&vi)[kElems], int tid,
+                                            const double* __restrict__ tw_re,
+                                            const double* __restrict__ tw_im) {
+  const int low = tid & ((1 << B) - 1);
+#pragma unroll
+  for (int sb = LO; sb < kElemsLog; ++sb) {
+    const int h = 1 << sb;
+#pragma unroll
+    for (int jl = 0; jl < h; ++jl) {
+      const int t = (1 << (B + sb)) - 1 + low + (jl << B);
+      const double wr = __ldg(tw_re + t), wi = __ldg(tw_im + t);
+#pragma unroll
+      for (int i = jl; i < kElems; i += 2 * h) butterfly(vr[i], vi[i], vr[i + h], vi[i + h], wr, wi);
     }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < m; e += blockDim.x) {
-    out_re[base + e] = x[e].x;
-    out_im[base + e] = x[e].y;
   }
 }
 
-// The last DIT stage (t = m/2) of rows of 2^logm values, in place: one
-// thread per butterfly.
-__global__ void fft_last_stage_kernel(double* __restrict__ re, double* __restrict__ im,
-                                      const double* __restrict__ tw_re,
-                                      const double* __restrict__ tw_im, int logm,
-                                      long long rows) {
-  const int half = 1 << (logm - 1);
-  const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= rows * half) return;
-  const long long row = idx >> (logm - 1);
-  const int k = static_cast<int>(idx & (half - 1));
-  const long long lo = (row << logm) + k;
-  const long long hi = lo + half;
-  const Complex2 c = butterfly(re[lo], im[lo], re[hi], im[hi], __ldg(tw_re + half - 1 + k),
-                               __ldg(tw_im + half - 1 + k));
-  re[lo] = c.lo_re;
-  im[lo] = c.lo_im;
-  re[hi] = c.hi_re;
-  im[hi] = c.hi_im;
+// The groups from the one at bit B (running its bits LO..kElemsLog-1) up to
+// the P stages of a block's part: groups at B = 0, E', 2E', ... (E' =
+// kElemsLog), and where E' does not divide P a last one at B = P - E'
+// running only the bits not done yet.
+// The values arrive in group B's layout, and leave stored in shared memory
+// in the last group's layout.
+template <int P, int B, int LO>
+__device__ __forceinline__ void groups_from(double (&vr)[kElems], double (&vi)[kElems],
+                                            double* sre, double* sim, int tid,
+                                            const double* __restrict__ tw_re,
+                                            const double* __restrict__ tw_im) {
+  stage_group<B, LO>(vr, vi, tid, tw_re, tw_im);
+  // each thread writes back the slots it read: no other thread reads them
+  const int here = pad(part_index(tid, 0, B));
+#pragma unroll
+  for (int e = 0; e < kElems; ++e) {
+    sre[here + slot(e, B)] = vr[e];
+    sim[here + slot(e, B)] = vi[e];
+  }
+  constexpr int DONE = B + kElemsLog;
+  if constexpr (DONE < P) {
+    constexpr int NEXT = DONE + kElemsLog <= P ? DONE : P - kElemsLog;
+    __syncthreads();
+    const int next = pad(part_index(tid, 0, NEXT));
+#pragma unroll
+    for (int e = 0; e < kElems; ++e) {
+      vr[e] = sre[next + slot(e, NEXT)];
+      vi[e] = sim[next + slot(e, NEXT)];
+    }
+    groups_from<P, NEXT, DONE - NEXT>(vr, vi, sre, sim, tid, tw_re, tw_im);
+  }
+}
+
+// A cluster of CS = 2^kClusterLog blocks per row, block rank k holding the
+// contiguous part [k Q, (k + 1) Q) of the row, Q = m / CS. The first
+// log m - kClusterLog stages act within each part; the last kClusterLog
+// pair the parts: a unit of them is the CS values j + c Q (c < CS) of one
+// j < Q, whose stage log Q + sb pairs c with c + 2^sb under twiddle
+// j + (c mod 2^sb) Q. Block k takes the units j in [k Q / CS, (k + 1) Q / CS).
+template <int LOGM>
+__global__ void __cluster_dims__(1 << kClusterLog, 1, 1)
+    __launch_bounds__(1 << (LOGM - kClusterLog - kElemsLog))
+    fft_row_kernel(const double* __restrict__ in_re, const double* __restrict__ in_im,
+                   double* __restrict__ out_re, double* __restrict__ out_im,
+                   const double* __restrict__ tw_re, const double* __restrict__ tw_im) {
+  constexpr int CS = 1 << kClusterLog;
+  constexpr int LOGQ = LOGM - kClusterLog;
+  constexpr int Q = 1 << LOGQ;   // values a block
+  constexpr int T = Q / kElems;  // threads a block
+  extern __shared__ double2 smem_fft[];
+  double* sre = reinterpret_cast<double*>(smem_fft);
+  double* sim = sre + pad(Q);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int k = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const long long row = blockIdx.x >> kClusterLog;
+  const double* pre = in_re + (row << LOGM) + k * Q;
+  const double* pim = in_im + (row << LOGM) + k * Q;
+
+  // coalesced load of the block's part, every load issued before the stores
+  double vr[kElems], vi[kElems];
+#pragma unroll
+  for (int q = 0; q < kElems; ++q) {
+    vr[q] = pre[tid + q * T];
+    vi[q] = pim[tid + q * T];
+  }
+#pragma unroll
+  for (int q = 0; q < kElems; ++q) {
+    sre[pad(tid + q * T)] = vr[q];
+    sim[pad(tid + q * T)] = vi[q];
+  }
+  __syncthreads();
+  const int first = pad(part_index(tid, 0, 0));
+#pragma unroll
+  for (int e = 0; e < kElems; ++e) {
+    vr[e] = sre[first + slot(e, 0)];
+    vi[e] = sim[first + slot(e, 0)];
+  }
+  groups_from<LOGQ, 0, 0>(vr, vi, sre, sim, tid, tw_re, tw_im);
+  cluster.sync();  // every part done and visible to the other blocks
+
+  // the last kClusterLog stages, on units read through distributed shared memory
+  const double* rre[CS];
+  const double* rim[CS];
+#pragma unroll
+  for (int c = 0; c < CS; ++c) {
+    rre[c] = cluster.map_shared_rank(sre, c);
+    rim[c] = cluster.map_shared_rank(sim, c);
+  }
+  double* ore = out_re + (row << LOGM);
+  double* oim = out_im + (row << LOGM);
+#pragma unroll
+  for (int q = 0; q < kElems / CS; ++q) {
+    const int j = k * (Q / CS) + tid + q * T;
+    double ur[CS], ui[CS];
+#pragma unroll
+    for (int c = 0; c < CS; ++c) {
+      ur[c] = rre[c][pad(j)];
+      ui[c] = rim[c][pad(j)];
+    }
+#pragma unroll
+    for (int sb = 0; sb < kClusterLog; ++sb) {
+      const int h = 1 << sb;
+#pragma unroll
+      for (int jl = 0; jl < h; ++jl) {
+        const int t = (Q << sb) - 1 + j + jl * Q;
+        const double wr = __ldg(tw_re + t), wi = __ldg(tw_im + t);
+#pragma unroll
+        for (int c = jl; c < CS; c += 2 * h) butterfly(ur[c], ui[c], ur[c + h], ui[c + h], wr, wi);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CS; ++c) {
+      ore[j + c * Q] = ur[c];
+      oim[j + c * Q] = ui[c];
+    }
+  }
+  cluster.sync();  // the other blocks may still read this block's part
+}
+
+template <int LOGM>
+cudaError_t launch(const double* in_re, const double* in_im, double* out_re, double* out_im,
+                   const double* tw_re, const double* tw_im, long long rows, cudaStream_t s) {
+  constexpr int Q = 1 << (LOGM - kClusterLog);
+  constexpr size_t smem = 2 * static_cast<size_t>(pad(Q)) * sizeof(double);
+  static unsigned configured = 0;  // bit d: done on device d
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 32 || !(configured >> dev & 1u)) {
+    err = cudaFuncSetAttribute(fft_row_kernel<LOGM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    if (dev < 32) configured |= 1u << dev;
+  }
+  fft_row_kernel<LOGM><<<static_cast<unsigned>(rows << kClusterLog), Q / kElems, smem, s>>>(
+      in_re, in_im, out_re, out_im, tw_re, tw_im);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -117,30 +255,29 @@ const char* hh_error_string(int code) {
 }
 
 // in_re/in_im: [rows, 2^logm] bit-reversed input; out_re/out_im: [rows,
-// 2^logm] natural-order DFT; tw_re/tw_im: [2^logm - 1] compact per-stage
-// twiddles. logm in [9, 14]. Returns cudaGetLastError() after the launches,
-// or cudaErrorInvalidValue for a logm out of range.
+// 2^logm] natural-order DFT (not aliasing the input); tw_re/tw_im:
+// [2^logm - 1] compact per-stage twiddles. logm in [9, 14]. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a logm
+// out of range.
 int hh_fft(const double* in_re, const double* in_im, double* out_re, double* out_im,
            const double* tw_re, const double* tw_im, long long rows, int logm, void* stream) {
-  if (logm < 9 || logm > kMaxRowLogM + 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int row_logm = logm < kMaxRowLogM ? logm : kMaxRowLogM;
-  const long long block_rows = rows << (logm - row_logm);
-  const int m_row = 1 << row_logm;
-  const size_t smem = static_cast<size_t>(m_row) * sizeof(double2);
-  cudaError_t err = cudaFuncSetAttribute(
-      fft_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = m_row / 2 < 1024 ? m_row / 2 : 1024;
-  fft_rows_kernel<<<static_cast<unsigned>(block_rows), threads, smem, s>>>(
-      in_re, in_im, out_re, out_im, tw_re, tw_im, row_logm);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || logm == row_logm) return static_cast<int>(err);
-  const long long butterflies = rows << (logm - 1);
-  const int last_threads = 256;
-  fft_last_stage_kernel<<<static_cast<unsigned>((butterflies + last_threads - 1) / last_threads),
-                          last_threads, 0, s>>>(out_re, out_im, tw_re, tw_im, logm, rows);
-  return static_cast<int>(cudaGetLastError());
+  switch (logm) {
+    case 9:
+      return launch<9>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 10:
+      return launch<10>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 11:
+      return launch<11>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 12:
+      return launch<12>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 13:
+      return launch<13>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 14:
+      return launch<14>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

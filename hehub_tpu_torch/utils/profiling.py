@@ -2,7 +2,9 @@
 hehub_tpu/utils/profiling.py).
 
 `device_time` is the device time per call between CUDA events, after
-warm-up. `step_time` is the host clock around calls that end in
+warm-up: host work that outlasts the kernels shows in it. `kernel_time` is
+the time per call inside the call's kernels alone, from a torch.profiler
+trace. `step_time` is the host clock around calls that end in
 `torch.cuda.synchronize()`, for work whose host part counts too (the host
 codec). `device_trace` traces one call with torch.profiler and reports how
 long the device was busy in it and with what. All refuse to run without a
@@ -52,15 +54,54 @@ def step_time(fn: Callable[[], object], warmup: int = 1, iters: int = 4) -> floa
     return (time.perf_counter() - t0) / iters
 
 
+_OURS = "(anonymous namespace)::"
+
+
+def _is_ours(name: str) -> bool:
+    return name.removeprefix("void ").startswith(_OURS)
+
+
+def kernel_time(fn: Callable[[], object], ours: bool, warmup: int = 2, iters: int = 10) -> float:
+    """Device seconds per call of `fn()` spent inside its kernels: the sum of
+    the CUDA kernel intervals (no copies, no gaps between launches) of
+    `iters` calls traced by torch.profiler after `warmup` calls, over
+    `iters`. `ours` True keeps only this package's kernels, False only the
+    others (a library call's). Raises if the trace holds no such kernel (the
+    profiler could not trace the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _require_cuda()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count, seen = 0.0, 0, set()
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name.startswith(("Memcpy", "Memset")):
+            continue
+        seen.add(e.name)
+        if _is_ours(e.name) != ours:
+            continue
+        total_us += e.time_range.end - e.time_range.start
+        count += 1
+    if not count:
+        raise RuntimeError(f"the profiler trace holds no kernel of the call (ours={ours}); "
+                           f"kernels seen: {sorted(seen)}")
+    return total_us / 1e6 / iters
+
+
 def _activity(name: str) -> str:
     """The class of a device activity: a copy, one of this package's
     kernels (by its function name: csrc/ keeps them in an anonymous
     namespace at top level), or a kernel of PyTorch (in at:: and others)."""
     if name.startswith(("Memcpy", "Memset")):
         return "copies"
-    ours = "(anonymous namespace)::"
-    if name.removeprefix("void ").startswith(ours):
-        return name.removeprefix("void ")[len(ours):].split("(")[0].split("<")[0]
+    if _is_ours(name):
+        return name.removeprefix("void ")[len(_OURS):].split("(")[0].split("<")[0]
     return "pytorch kernels"
 
 

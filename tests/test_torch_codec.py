@@ -1,7 +1,8 @@
 """The CKKS device codec of hehub_tpu_torch against numpy and hehub_tpu:
 
-(a) the FP64 FFT's plain stage chain against numpy complex128, and the
-    balanced digit split, on their own;
+(a) the FP64 FFT's plain stage chain against numpy complex128, K5's
+    schedule applied with the plain butterfly, and the balanced digit
+    split, on their own;
 (b) basecnv.decompose_balanced bitwise against hehub_tpu's;
 (c) the device codec, forced on the CPU (config.use_device_codec = True),
     against hehub_tpu's float64 host codec (the reference's own df64 codec
@@ -52,6 +53,72 @@ def test_fft_plain_against_numpy(m):
     # the dispatcher takes the plain chain for CPU tensors
     re2, im2 = tfft.fft(*_fft_inputs(x), m)
     assert torch.equal(re2, re) and torch.equal(im2, im)
+
+
+# values a thread in csrc/fft.cu: its register groups take three index bits
+K5_ELEMS_LOG = 3
+
+
+def _reg_index(tid, e, b):
+    """hh::reg_index of csrc/reglayout.cuh: value e of thread tid in the
+    register group on index bits [b, b + 3)."""
+    return ((tid >> b) << (b + K5_ELEMS_LOG)) | (e << b) | (tid & ((1 << b) - 1))
+
+
+def _butterfly(ar, ai, br, bi, wr, wi):
+    bwr = br * wr - bi * wi
+    bwi = br * wi + bi * wr
+    return ar + bwr, ai + bwi, ar - bwr, ai - bwi
+
+
+def _k5_schedule(re, im, tw_re, tw_im):
+    """csrc/fft.cu's schedule with the plain butterfly: each half of a row
+    (one block of the cluster) runs stages 0 .. log m - 2 in register groups
+    at bits B = 0, 3, 6, ... (where 3 does not divide log m - 1, a last
+    group ends at bit log m - 2 and runs only the bits not done yet), stage
+    B + sb taking twiddle 2^(B + sb) - 1 + (tid mod 2^B) + (e mod 2^sb)·2^B;
+    then the last stage pairs j with j + m/2 under twiddle m/2 - 1 + j."""
+    rows, m = re.shape
+    Q = m // 2
+    P = Q.bit_length() - 1
+    vr, vi = re.reshape(rows, 2, Q).clone(), im.reshape(rows, 2, Q).clone()
+    tid = torch.arange(Q >> K5_ELEMS_LOG)[:, None]
+    B, lo = 0, 0
+    while True:
+        idx = _reg_index(tid, torch.arange(1 << K5_ELEMS_LOG)[None, :], B)  # [threads, 8]
+        gr, gi = vr[..., idx], vi[..., idx]
+        low = tid[:, 0] & ((1 << B) - 1)
+        for sb in range(lo, K5_ELEMS_LOG):
+            h = 1 << sb
+            for jl in range(h):
+                t = (1 << (B + sb)) - 1 + low + (jl << B)
+                for i in range(jl, 1 << K5_ELEMS_LOG, 2 * h):
+                    gr[..., i], gi[..., i], gr[..., i + h], gi[..., i + h] = _butterfly(
+                        gr[..., i], gi[..., i], gr[..., i + h], gi[..., i + h], tw_re[t], tw_im[t])
+        vr[..., idx], vi[..., idx] = gr, gi
+        done = B + K5_ELEMS_LOG
+        if done >= P:
+            break
+        B = done if done + K5_ELEMS_LOG <= P else P - K5_ELEMS_LOG
+        lo = done - B
+    t = Q - 1 + torch.arange(Q)
+    ar, ai, br, bi = _butterfly(vr[:, 0], vi[:, 0], vr[:, 1], vi[:, 1], tw_re[t], tw_im[t])
+    return torch.cat([ar, br], dim=-1), torch.cat([ai, bi], dim=-1)
+
+
+@pytest.mark.parametrize("m", [512, 16384])
+def test_fft_pass_split_is_bitwise_plain(m):
+    """K5's split of the log m stages over the two blocks of a row's cluster
+    and their register groups, with its layouts and twiddle indices, applied
+    with the plain butterfly: bitwise fft_plain's result (at m = 512 the last
+    register group is partial, at 16384 too, on other bits)."""
+    x = _complex_rows(3, m, np.random.default_rng(m))
+    re, im = _fft_inputs(x)
+    tw_re, tw_im = (torch.from_numpy(t.copy()) for t in tfft.fft_tables(m))
+    got_re, got_im = _k5_schedule(re, im, tw_re, tw_im)
+    want_re, want_im = tfft.fft_plain(re, im, m)
+    assert torch.equal(got_re, want_re) and torch.equal(got_im, want_im)
+    assert torch.equal(torch.signbit(got_re), torch.signbit(want_re))
 
 
 def test_balanced_digits_recompose_exactly():
@@ -186,9 +253,10 @@ def test_large_scale_takes_host_codec(device_codec_forced):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [512, 8192, 16384])
-def test_fft_kernel_matches_plain_on_card(cuda_device, m):  # noqa: F811
-    x = _complex_rows(3, m, np.random.default_rng(m))
+@pytest.mark.parametrize("rows", [1, 3, 64, 130])
+@pytest.mark.parametrize("m", [512, 1024, 2048, 4096, 8192, 16384])
+def test_fft_kernel_matches_plain_on_card(cuda_device, m, rows):  # noqa: F811
+    x = _complex_rows(rows, m, np.random.default_rng(m + rows))
     want_re, want_im = tfft.fft_plain(*_fft_inputs(x), m)
     re, im = (t.to(cuda_device) for t in _fft_inputs(x))
     before = kernels.LAUNCHES["fft"]

@@ -3,7 +3,8 @@ against hehub_tpu, mirroring tests/test_hybrid_ks.py: basecnv.base_convert
 bitwise, alpha=2 keys made by hehub_tpu and carried over with `convert`,
 then ext_prod, mult + relin + rescale, rotate(3), conjugate and a level
 that cuts a digit group, all bitwise; the port's own alpha=2 keys; and, on
-the card, the kernel K4 bitwise against ks_contract(ks_digits(...)).
+the card, the kernel K4 bitwise against its plain version at every n it
+takes.
 
 JAX is imported inside the tests that use it, so the card test also runs
 where JAX is not installed."""
@@ -18,11 +19,13 @@ from hehub_tpu_torch import convert, kernels
 from hehub_tpu_torch.core import basecnv as tbc
 from hehub_tpu_torch.core import context as tctx
 from hehub_tpu_torch.core import rns as trns
+from hehub_tpu_torch.ops import ntt as tn
 from hehub_tpu_torch.models import ckks as tckks
 from hehub_tpu_torch.rlwe import keys as tkeys
 from hehub_tpu_torch.rlwe import rgsw as trgsw
 from hehub_tpu_torch.rlwe import rlwe as trlwe
-from tests.torch_support import as_numpy, cuda_device, lazy_residues  # noqa: F401
+from tests.torch_support import (  # noqa: F401
+    as_numpy, cuda_device, ext_prod_case, lazy_residues, plain_ext_prod_conv)
 
 RNG = np.random.default_rng(17)
 N = 256
@@ -192,20 +195,31 @@ def test_ksk_gen_alpha_above_specials_raises(num_special, alpha):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,rows", [(1024, 3), (16384, 2)])
-def test_ext_prod_conv_kernel_matches_plain_on_card(cuda_device, n, rows):  # noqa: F811
-    ctx = tctx.make_context(tctx.create_ckks_params(n, 28, 5, use_security_budget=False,
-                                                    num_special=2))
+@pytest.mark.parametrize("rows", [1, 3, 64])
+@pytest.mark.parametrize("logn", range(10, 16))
+def test_ext_prod_conv_kernel_matches_plain_on_card(cuda_device, logn, rows):  # noqa: F811
+    """K4 at every n it takes, R = 1, 3, 64, D = 3 digit groups and L_ext = 7
+    (5 + 2 limbs): bitwise equal to its plain version (plain forward NTT of
+    the converted digits, ks_contract) on the same card; and, at R = 3, the
+    alpha=2 ext_prod on the card (base conversion, then K4) bitwise equal to
+    the plain path on the CPU."""
+    n = 1 << logn
+    ctx, ids_ext, tabs, _, conv, key = ext_prod_case(n, 5, 2, rows, cuda_device, logn)
+    before = kernels.LAUNCHES["ext_prod_conv"]
+    got = tn.from_u32_bits(kernels.ext_prod_conv(tn.to_u32_bits(conv), tn.to_u32_bits(key),
+                                                 *tabs))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ext_prod_conv"] == before + 1
+    want0, want1 = plain_ext_prod_conv(ctx, ids_ext, conv, key)
+    assert torch.equal(got[0], want0) and torch.equal(got[1], want1)
+    if rows != 3:
+        return
     gen = torch.Generator().manual_seed(6)
-    sk = trlwe.keygen(ctx, gen)
-    rlk = tkeys.relin_key(ctx, sk, gen, alpha=2)
+    rlk = tkeys.relin_key(ctx, trlwe.keygen(ctx, gen), gen, alpha=2)
     ids = tuple(range(5))  # 3 digit groups, the last one cut
     x = torch.from_numpy(lazy_residues(RNG, (rows,), ctx.moduli_of(ids), n).astype(np.int64))
     want = trgsw.ext_prod(ctx, trns.RnsPoly(x, trns.NTT, ids), rlk)
     rlk_d = trgsw.RgswCt(rlk.data.to(cuda_device), rlk.limb_ids, rlk.alpha)
-    before = kernels.LAUNCHES["ext_prod_conv"]
     got = trgsw.ext_prod(ctx, trns.RnsPoly(x.to(cuda_device), trns.NTT, ids), rlk_d)
-    torch.cuda.synchronize()
-    assert kernels.LAUNCHES["ext_prod_conv"] == before + 1
     assert torch.equal(got.c0.data.cpu(), want.c0.data)
     assert torch.equal(got.c1.data.cpu(), want.c1.data)

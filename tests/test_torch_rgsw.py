@@ -2,7 +2,8 @@
 same JAX-made secret and relinearization keys (carried over by
 hehub_tpu_torch.convert): ext_prod and div_last_rounded_pair bitwise,
 RgswCt.at_level, and — on the card — the fused external-product kernel K3
-bitwise against ks_contract(ks_digits(...)).
+bitwise against its plain version, at every n it takes, and the alpha=1
+ext_prod on the card bitwise against the plain path on the CPU.
 
 The JAX package is imported inside the tests that use it, so the card test
 also runs where JAX is not installed."""
@@ -13,15 +14,17 @@ import numpy as np
 import pytest
 import torch
 
-from hehub_tpu_torch import convert
+from hehub_tpu_torch import convert, kernels
 from hehub_tpu_torch.core import basecnv as tbc
 from hehub_tpu_torch.core import context as tctx
 from hehub_tpu_torch.core import rns as trns
 from hehub_tpu_torch.ops import modarith as tma
+from hehub_tpu_torch.ops import ntt as tn
 from hehub_tpu_torch.rlwe import keys as tkeys
 from hehub_tpu_torch.rlwe import rgsw as trgsw
 from hehub_tpu_torch.rlwe import rlwe as trlwe
-from tests.torch_support import as_numpy, cuda_device, lazy_residues  # noqa: F401
+from tests.torch_support import (  # noqa: F401
+    as_numpy, cuda_device, ext_prod_case, lazy_residues, plain_ext_prod_conv)
 
 RNG = np.random.default_rng(5)
 N = 256
@@ -136,20 +139,38 @@ def test_relin_key_from_torch_keygen_decrypts_to_noise():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,rows", [(1024, 3), (16384, 2)])
-def test_ext_prod_kernel_matches_plain_on_card(cuda_device, n, rows):  # noqa: F811
-    ctx = tctx.make_context(tctx.create_ckks_params(n, 28, 3, use_security_budget=False))
+@pytest.mark.parametrize("rows", [1, 3, 64])
+@pytest.mark.parametrize("logn", range(10, 16))
+def test_ext_prod_kernel_matches_plain_on_card(cuda_device, logn, rows):  # noqa: F811
+    """K3 at every n it takes, R = 1, 3, 64 and L_ext = 5 (4 + 1 limbs):
+    bitwise equal to its plain version (each strict digit broadcast over the
+    extended limbs, plain forward NTT, ks_contract) on the same card; and,
+    at R = 3, the alpha=1 ext_prod on the card (digits, int32 conversion and
+    a keygen-made relin key read through its strides) bitwise equal to the
+    plain path on the CPU."""
+    n = 1 << logn
+    ctx, ids_ext, tabs, digits, _, key = ext_prod_case(n, 4, 1, rows, cuda_device, logn)
+    before = kernels.LAUNCHES["ext_prod"]
+    got = tn.from_u32_bits(kernels.ext_prod(tn.to_u32_bits(digits), tn.to_u32_bits(key), *tabs))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ext_prod"] == before + 1
+    tiled = digits[:, :, None, :].expand(rows, 4, len(ids_ext), n).contiguous()
+    want0, want1 = plain_ext_prod_conv(ctx, ids_ext, tiled, key)
+    assert torch.equal(got[0], want0) and torch.equal(got[1], want1)
+    if rows != 3:
+        return
     gen = torch.Generator().manual_seed(6)
-    sk = trlwe.keygen(ctx, gen)
-    rlk = tkeys.relin_key(ctx, sk, gen)
-    ids = (0, 1, 2)
+    rlk = tkeys.relin_key(ctx, trlwe.keygen(ctx, gen), gen)
+    ids = tuple(range(4))
     x = torch.from_numpy(lazy_residues(RNG, (rows,), ctx.moduli_of(ids), n).astype(np.int64))
     want = trgsw.ext_prod(ctx, trns.RnsPoly(x, trns.NTT, ids), rlk)
     rlk_d = trgsw.RgswCt(rlk.data.to(cuda_device), rlk.limb_ids)
+    before = kernels.LAUNCHES["ext_prod"]
     got = trgsw.ext_prod(ctx, trns.RnsPoly(x.to(cuda_device), trns.NTT, ids), rlk_d)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ext_prod"] == before + 1
     assert torch.equal(got.c0.data.cpu(), want.c0.data)
     assert torch.equal(got.c1.data.cpu(), want.c1.data)
-    torch.cuda.synchronize()
 
 
 def test_mixed_width_division_and_garner_bitwise():

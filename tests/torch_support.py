@@ -30,3 +30,36 @@ def lazy_residues(rng, batch_shape, mods, n):
 def as_numpy(t: torch.Tensor) -> np.ndarray:
     """A port tensor of uint32 residues (int64) as numpy uint32."""
     return t.cpu().numpy().astype(np.uint32)
+
+
+def ext_prod_case(n, num_levels, num_special, R, device, seed):
+    """Random inputs of the fused external-product kernels at n, on
+    `device`: (ctx, ids_ext, kernel tables, strict digits [R, l, n] (K3),
+    converted lazy digits [R, D, L_ext, n] with D = ceil(l / 2) (K4), key
+    [l, 2, L_ext, n] lazy Montgomery-domain values), all int64."""
+    from hehub_tpu_torch.core import context as tctx
+
+    ctx = tctx.make_context(tctx.create_ckks_params(
+        n, 28, num_levels, use_security_budget=False, num_special=num_special))
+    ids = tuple(range(num_levels))
+    ids_ext = ids + ctx.special_indices
+    rng = np.random.default_rng(seed)
+    strict = np.stack([rng.integers(0, q, (R, n)) for q in ctx.moduli_of(ids)], axis=1)
+    conv = lazy_residues(rng, (R, -(-num_levels // 2)), ctx.moduli_of(ids_ext), n)
+    key = lazy_residues(rng, (num_levels, 2), ctx.moduli_of(ids_ext), n)
+    tabs = [ctx.device_rows(nm, ids_ext, device, torch.int32)
+            for nm in ("tw_fwd", "tw_fwd_sh", "q", "two_q", "neg_qinv")]
+    to = lambda a: torch.from_numpy(a.astype(np.int64)).to(device)  # noqa: E731
+    return ctx, ids_ext, tabs, to(strict), to(conv), to(key)
+
+
+def plain_ext_prod_conv(ctx, ids_ext, digits, key):
+    """The plain PyTorch version of K3/K4 on the digits' device: forward NTT
+    of digits [R, D, L_ext, n] by the plain stage chain, then ks_contract
+    against key [>= D, 2, L_ext, n]; returns (c0, c1) [R, L_ext, n]."""
+    from hehub_tpu_torch.ops import ntt as tn
+    from hehub_tpu_torch.rlwe import rgsw as trgsw
+
+    tabs = [ctx.device_rows(nm, ids_ext, digits.device) for nm in tn.FWD_TABLES]
+    out = trgsw.ks_contract(ctx, tn.ntt_fwd(digits, *tabs), trgsw.RgswCt(key, ids_ext))
+    return out.c0.data, out.c1.data
