@@ -13,15 +13,22 @@ Phases, each printing its own lines:
      (inverse NTT) on [64, 7, 16384]; K3 (alpha=1 external product) with
      R=64, l=7, L_ext=8; K4 (alpha=2 external product) with R=64, D=6,
      L_ext=14; K5 (FP64 FFT) on [64, 8192] — all bitwise, K5 also against
-     numpy complex128; each timed twice, kernel-only (the sum of its kernel
-     intervals in a torch.profiler trace, per call) and per call (CUDA
-     events around back-to-back Python calls, the wrapper's host work
-     included), beside its plain version, its bound (the least time the
+     numpy complex128; each timed twice, kernel-only (per call, from a
+     torch.profiler trace: each kernel's mean interval times its launches
+     per call, for the port's kernels and the library's alike) and per
+     call (CUDA events around back-to-back Python calls, the wrapper's host
+     work included), beside its plain version, its bound (the least time the
      card could take: bytes over the memory rate or operations over the
      peak rate, the larger) and the ratio of the two, and K5 beside
      torch.fft.fft, timed both ways too, and kernel-only against it at
-     [130, 8192] and [64, 16384] as well (the card tests hold K3-K5 at
-     every size they take);
+     [130, 8192] and [64, 16384] as well (the card tests hold K1-K5 at
+     every size they take); after phases 4 and 5, whose launch records
+     give its shapes, K1 and K2 again at n=16384 at every row count the
+     two paths launched them with, each bitwise against its plain chain and
+     timed kernel-only and per call beside its bound at those rows, and
+     the launch-weighted sums of those kernel-only times (Σ over a run's or
+     a step's launches of the time at their row count) per path, per step
+     and over both paths;
   4. main path at n=16384, 7+1 limbs, batch 64, keys and noise from a
      seeded CUDA generator: keygen, relin and rotation keys, encode +
      encrypt (device codec), mult + relin + rescale, rotate(1), decrypt +
@@ -31,18 +38,22 @@ Phases, each printing its own lines:
      phase; the homomorphic steps replayed on the CPU through the plain
      versions give bitwise the same ciphertexts, and decoding them there
      through the device codec's plain version gives the same slots; then
-     times of the steps and a profiler trace of each step;
+     times of the steps, a profiler trace of each step, and the rows of
+     each K1/K2 launch, of the whole run and of one call of each step;
   5. hybrid path at n=16384 over the full 128-bit budget, 12+2 limbs,
      alpha=2 keys, batch 64: encode, encrypt, mult + relin + rescale,
      rotate(1), decrypt, decode against a*b and its roll (<= 2^-8); K4 and
      K5 must have launched during this phase; a CPU replay of 4 rows gives
-     bitwise the same ciphertexts; then mult and rotate times and traces;
-  6. a `kernels` JSON line; the card line; last, the result line
-     {"ok": true, "device": {...}}.
+     bitwise the same ciphertexts; then mult and rotate times and traces,
+     and the K1/K2 launch records as in phase 4;
+  6. a `kernels` JSON line (K1 and K2 with `by_rows`, their times at each
+     row count, and `launch_weighted_kernel_ms`); the card line; last, the
+     result line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -63,6 +74,7 @@ from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
 from hehub_tpu_torch.utils.profiling import device_time, device_trace, kernel_time, step_time
 
 N = 16384
+NTT_KERNELS = ("ntt_fwd", "ntt_inv")
 LEVELS = 7
 BATCH = 64
 # hybrid key switching over the full 128-bit budget at n=16384: 12 ciphertext
@@ -90,10 +102,16 @@ FFT_OTHER_SHAPES = ((130, 8192), (64, 16384))
 HBM_BYTES_PER_S = 3.35e12  # data sheet
 FP64_PER_S = 34e12  # data sheet, FP64 outside the tensor cores
 INT32_PER_S = 132 * 64 * 1.98e9  # 64 INT32 lanes per SM (white paper), 132 SMs, 1.98 GHz
-# uint32 operations of csrc/modarith.cuh: a Shoup butterfly is shoup_mul_lazy
-# (4) + add_lazy (3) + sub_lazy (4); a contraction step mont_mul_lazy (7) +
-# add_lazy (3); an FP64 butterfly is 4 products and 6 sums.
-NTT_BUTTERFLY_OPS = 11
+# uint32 operations of csrc/modarith.cuh: a forward (Cooley-Tukey) Shoup
+# butterfly is shoup_mul_lazy (4) + add_lazy (3) + sub_lazy (4); an inverse
+# (Gentleman-Sande) one add_lazy (3) + lo + 2q - hi (2) + shoup_mul_lazy
+# (4), and in its last stage, n^-1 folded in, lo + hi (1) + shoup_mul_lazy
+# (4) + lo + 2q - hi (2) + shoup_mul_lazy (4); a contraction step
+# mont_mul_lazy (7) + add_lazy (3); an FP64 butterfly is 4 products and 6
+# sums.
+FWD_BUTTERFLY_OPS = 11
+INV_BUTTERFLY_OPS = 9
+INV_LAST_BUTTERFLY_OPS = 11
 CONTRACT_OPS = 10
 FFT_BUTTERFLY_FLOPS = 10
 
@@ -126,8 +144,13 @@ def timed(call):
     return dict(ms=device_time(call) * 1e3, kernel_ms=kernel_time(call, ours=True) * 1e3)
 
 
-def ntt_ops(rows, n):
-    return rows * (n // 2) * (n.bit_length() - 1) * NTT_BUTTERFLY_OPS
+def ntt_ops(rows, n, inverse=False):
+    """uint32 operations of `rows` forward (or inverse) NTTs of length n:
+    log2 n stages of n/2 butterflies each."""
+    stages = n.bit_length() - 1
+    per_row = ((stages - 1) * INV_BUTTERFLY_OPS + INV_LAST_BUTTERFLY_OPS if inverse
+               else stages * FWD_BUTTERFLY_OPS)
+    return rows * (n // 2) * per_row
 
 
 def lazy_residues(gen, shape, two_q):
@@ -168,7 +191,8 @@ def fft_other_shapes(dev, gen):
         natural = torch.complex(re, im)
         rec = dict(rows=rows, m=m,
                    kernel_ms=kernel_time(lambda: kernels.fft(re, im, *tw), ours=True) * 1e3,
-                   library_kernel_ms=kernel_time(lambda: torch.fft.fft(natural), ours=False) * 1e3)
+                   library_kernel_ms=kernel_time(lambda: torch.fft.fft(natural),
+                                                 ours=False) * 1e3)
         rec["kernel_over_library"] = rec["kernel_ms"] / rec["library_kernel_ms"]
         print(f"[kernels] fft at [{rows}, {m}]: bitwise vs plain, kernel-only "
               f"{rec['kernel_ms']:.4f} ms, torch.fft.fft kernel-only "
@@ -218,7 +242,8 @@ def kernels_vs_plain(ctx, hctx, dev):
         max_abs_err=int((k2 - p2).abs().max()),
         **timed(lambda: kernels.ntt_inv(x32, *inv32)),
         plain_ms=device_time(lambda: nttmod.ntt_inv(x, *inv64), 1, 3) * 1e3,
-        library_ms=None, **bound(ntt_bytes, ntt_ops(BATCH * LEVELS, N), INT32_PER_S),
+        library_ms=None,
+        **bound(ntt_bytes, ntt_ops(BATCH * LEVELS, N, inverse=True), INT32_PER_S),
     )
 
     sk = rlwe_mod.keygen(ctx, gen)
@@ -327,6 +352,64 @@ def kernels_vs_plain(ctx, hctx, dev):
     return records
 
 
+def ntt_row_sweep(hctx, dev, path_rows):
+    """Phase 3, second part, run after phases 4 and 5 because their records
+    give its shapes: K1 and K2 at n=N at every row count the paths launched
+    them with ([rows / L, L, N], the rows spread over as many of the hybrid
+    context's 14 limbs as divide them), each bitwise against its plain
+    chain, then timed per call (CUDA events) and kernel-only. Returns
+    {kernel: {rows: record}}."""
+    ids_all = tuple(range(len(hctx.params.moduli))) + hctx.special_indices
+    gen = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    for kind, names, plain, launch in (
+            ("ntt_fwd", nttmod.FWD_TABLES, nttmod.ntt_fwd, kernels.ntt_fwd),
+            ("ntt_inv", nttmod.INV_TABLES, nttmod.ntt_inv, kernels.ntt_inv)):
+        out[kind] = {}
+        for rows in sorted(set().union(*(rec[kind] for rec in path_rows))):
+            L = max(l for l in range(1, len(ids_all) + 1) if rows % l == 0)
+            ids = ids_all[:L]
+            x = lazy_residues(gen, (rows // L, L, N), hctx.device_rows("two_q", ids, dev))
+            tabs32 = [hctx.device_rows(nm, ids, dev, torch.int32) for nm in names]
+            x32 = nttmod.to_u32_bits(x)
+            got = nttmod.from_u32_bits(launch(x32, *tabs32))
+            want = plain(x, *(hctx.device_rows(nm, ids, dev) for nm in names))
+            check(torch.equal(got, want), f"{kind} at {rows} rows differs from the plain chain")
+            rec = dict(limbs=L, **timed(functools.partial(launch, x32, *tabs32)),
+                       **bound(2 * rows * N * 4, ntt_ops(rows, N, kind == "ntt_inv"),
+                               INT32_PER_S))
+            rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+            out[kind][rows] = rec
+            del x, got, want
+    for kind in out:
+        for rows, rec in out[kind].items():
+            print(f"[kernels] {kind} at [{rows // rec['limbs']}, {rec['limbs']}, {N}] ({rows} "
+                  f"rows): bitwise vs plain, kernel-only {rec['kernel_ms']:.4f} ms, call "
+                  f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}, "
+                  f"kernel-only / bound {rec['kernel_over_bound']:.3f}")
+    return out
+
+
+def weighted_ms(rows_record, times):
+    """Σ over the launches of a {rows: launches} record of the kernel-only
+    ms at their row count."""
+    return sum(count * times[rows]["kernel_ms"] for rows, count in rows_record.items())
+
+
+def launch_weighted(sweep, path_rows, path_steps):
+    """The kernel-only time of each kernel's launches, summed with the times
+    of the row-count sweep: per path run, per step, and over both paths."""
+    out = {}
+    for kind, times in sweep.items():
+        rec = {tag: weighted_ms(path_rows[tag][kind], times) for tag in path_rows}
+        rec["both_paths"] = sum(rec.values())
+        rec["steps"] = {f"{tag} {step}": weighted_ms(r[kind], times)
+                        for tag, steps in path_steps.items() for step, r in steps.items()}
+        out[kind] = rec
+        print(f"[kernels] {kind} launch-weighted kernel-only ms: {json.dumps(rec)}")
+    return out
+
+
 def _rows_on_cpu(ct, rows):
     take = lambda p: RnsPoly(p.data[:rows].cpu(), p.form, p.limb_ids)  # noqa: E731
     return ckks.CkksCt(take(ct.c0), take(ct.c1), ct.scaling_factor)
@@ -390,6 +473,7 @@ def run_path(tag, params, ctx, dev, alpha, seed):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    rows = {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS}
 
     L = len(params.moduli)
     check(out.shape == (BATCH, N // 2), f"{tag}: decoded shape {out.shape}")
@@ -403,13 +487,28 @@ def run_path(tag, params, ctx, dev, alpha, seed):
           f"{err_mult:.3e} (log2 {np.log2(err_mult):.2f}), of rotate(mult, 1) vs "
           f"np.roll(a*b, 1) = {err_rot:.3e} (log2 {np.log2(err_rot):.2f}), "
           f"launches {json.dumps(launches)}")
+    print(f"[{tag}] K1/K2 launches by rows {{rows: launches}}, keygen..decode: {json.dumps(rows)}")
     state = dict(a=a, b=b, gen=gen, sk=sk, rlk=rlk, rk=rk, ca=ca, cb=cb, prod=prod, rot=rot,
-                 out=out)
+                 out=out, rows=rows)
     return launches, err_mult, err_rot, state
 
 
+def step_rows(tag, steps):
+    """The rows of each K1/K2 launch in one call of each step:
+    {step: {kernel: {rows: launches}}}."""
+    out = {}
+    for name, fn in steps.items():
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        fn()
+        out[name] = {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS}
+    print(f"[{tag}] K1/K2 launches by rows, one batch-64 call of each step: {json.dumps(out)}")
+    return out
+
+
 def main_path(params, ctx, dev):
-    """Phase 4: returns (launch counts of the run, metrics)."""
+    """Phase 4: returns (launch counts of the run, K1/K2 launches by rows of
+    the run, the same of each step)."""
     launches, err_mult, err_rot, s = run_path("main", params, ctx, dev, 1, 0)
     check(err_mult <= MAX_ERR_MULT, f"mult decode error {err_mult} above {MAX_ERR_MULT}")
     check(err_rot <= MAX_ERR_ROT, f"rotate decode error {err_rot} above {MAX_ERR_ROT}")
@@ -441,13 +540,14 @@ def main_path(params, ctx, dev):
     )
     print("[main] times (CUDA events per transform or per ciphertext of a batch-64 call; "
           "*_host_ms: host clock, per ciphertext): " + json.dumps(metrics))
-    print_traces("main", {
+    steps = {
         "encode+encrypt": encode_encrypt,
         "decrypt+decode": decrypt_decode,
         "mult+relin+rescale": lambda: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk)),
         "rotate(1)": lambda: ckks.rotate(ctx, prod, rk, 1),
-    })
-    return launches, metrics
+    }
+    print_traces("main", steps)
+    return launches, s["rows"], step_rows("main", steps)
 
 
 def print_traces(tag, steps):
@@ -458,7 +558,7 @@ def print_traces(tag, steps):
 
 def hybrid_path(dev):
     """Phase 5: the hybrid key-switching path over the full budget. Returns
-    (launch counts of the run, metrics)."""
+    what main_path returns."""
     params = create_ckks_params(N, scaling_bits=28, num_special=HYBRID_SPECIAL)
     ctx = make_context(params)
     launches, err_mult, err_rot, s = run_path("hybrid", params, ctx, dev, ALPHA, 5)
@@ -479,11 +579,12 @@ def hybrid_path(dev):
     )
     print("[hybrid] times (CUDA events, per ciphertext of a batch-64 call): "
           + json.dumps(metrics))
-    print_traces("hybrid", {
+    steps = {
         "mult+relin+rescale": lambda: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk)),
         "rotate(1)": lambda: ckks.rotate(ctx, prod, rk, 1),
-    })
-    return launches, metrics
+    }
+    print_traces("hybrid", steps)
+    return launches, s["rows"], step_rows("hybrid", steps)
 
 
 def main() -> int:
@@ -509,13 +610,23 @@ def main() -> int:
     hctx = make_context(create_ckks_params(N, scaling_bits=28, num_special=HYBRID_SPECIAL))
     records = kernels_vs_plain(ctx, hctx, dev)
     torch.cuda.empty_cache()
-    main_launches, _ = main_path(params, ctx, dev)
+    main_launches, main_rows, main_steps = main_path(params, ctx, dev)
     torch.cuda.empty_cache()
-    hybrid_launches, _ = hybrid_path(dev)
+    hybrid_launches, hybrid_rows, hybrid_steps = hybrid_path(dev)
+    torch.cuda.empty_cache()
+    sweep = ntt_row_sweep(hctx, dev, (main_rows, hybrid_rows))
+    weighted = launch_weighted(sweep, {"main": main_rows, "hybrid": hybrid_rows},
+                               {"main": main_steps, "hybrid": hybrid_steps})
     for k, rec in records.items():
         rec["launches"] = main_launches[k] + hybrid_launches[k]
         rec["launches_by_path"] = {"main": main_launches[k], "hybrid": hybrid_launches[k]}
         check(rec["launches"] > 0, f"kernel {k} was launched on no path")
+    for k in NTT_KERNELS:
+        records[k]["by_rows"] = [
+            dict(rows=rows, launches_main=main_rows[k].get(rows, 0),
+                 launches_hybrid=hybrid_rows[k].get(rows, 0), **rec)
+            for rows, rec in sweep[k].items()]
+        records[k]["launch_weighted_kernel_ms"] = weighted[k]
     print(json.dumps({"kernels": [dict(name=k, **rec) for k, rec in records.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

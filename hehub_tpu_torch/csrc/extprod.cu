@@ -55,6 +55,7 @@
 
 #include <cstdint>
 
+#include "launch.cuh"
 #include "ntt.cuh"
 
 namespace {
@@ -171,17 +172,9 @@ int launch(const ExtProdArgs& a, cudaStream_t stream) {
   constexpr int n = 1 << LOGN;
   constexpr int words = ((n + (n >> EB) + 3) & ~3) + (ACC == kAccShared ? 2 * n : 0);
   constexpr size_t smem = words * sizeof(uint32_t);
-  static unsigned configured = 0;  // bit d: done on device d
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static unsigned configured = 0;
+  const cudaError_t err = hh::set_max_smem_once(ext_prod_kernel<LOGN, EB, ACC>, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 32 || !(configured >> dev & 1u)) {
-    err = cudaFuncSetAttribute(ext_prod_kernel<LOGN, EB, ACC>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (dev < 32) configured |= 1u << dev;
-  }
   const dim3 grid(static_cast<unsigned>(a.R), static_cast<unsigned>(a.L_ext));
   ext_prod_kernel<LOGN, EB, ACC><<<grid, n >> EB, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -52,6 +52,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "reglayout.cuh"
 
 namespace cg = cooperative_groups;
@@ -231,16 +232,9 @@ cudaError_t launch(const double* in_re, const double* in_im, double* out_re, dou
                    const double* tw_re, const double* tw_im, long long rows, cudaStream_t s) {
   constexpr int Q = 1 << (LOGM - kClusterLog);
   constexpr size_t smem = 2 * static_cast<size_t>(pad(Q)) * sizeof(double);
-  static unsigned configured = 0;  // bit d: done on device d
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static unsigned configured = 0;
+  const cudaError_t err = hh::set_max_smem_once(fft_row_kernel<LOGM>, smem, configured);
   if (err != cudaSuccess) return err;
-  if (dev >= 32 || !(configured >> dev & 1u)) {
-    err = cudaFuncSetAttribute(fft_row_kernel<LOGM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    if (dev < 32) configured |= 1u << dev;
-  }
   fft_row_kernel<LOGM><<<static_cast<unsigned>(rows << kClusterLog), Q / kElems, smem, s>>>(
       in_re, in_im, out_re, out_im, tw_re, tw_im);
   return cudaGetLastError();

@@ -13,14 +13,18 @@
 
 namespace hh {
 
+// The lazy sums fold t in [0, 4q) into [0, 2q) as min(t, t - 2q), one
+// unsigned minimum (below 2q, t - 2q wraps above t): the same value as
+// t >= 2q ? t - 2q : t, whose compare and select made K1-K4 4-11 % slower
+// on an H100 (PERF.md).
 __device__ __forceinline__ uint32_t add_lazy(uint32_t a, uint32_t b, uint32_t two_q) {
   const uint32_t t = a + b;
-  return t >= two_q ? t - two_q : t;
+  return min(t, t - two_q);
 }
 
 __device__ __forceinline__ uint32_t sub_lazy(uint32_t a, uint32_t b, uint32_t two_q) {
   const uint32_t t = a + two_q - b;
-  return t >= two_q ? t - two_q : t;
+  return min(t, t - two_q);
 }
 
 __device__ __forceinline__ uint32_t neg_lazy(uint32_t a, uint32_t two_q) {

@@ -9,8 +9,9 @@ is built or loaded when this module is imported.
 The launch functions below take CUDA tensors (int32 holding the bits of
 uint32 residues; float64 for the FFT), check device, dtype, shape and
 layout, allocate the output, launch on PyTorch's current stream, raise on a
-non-zero `cudaGetLastError()`, and count the launch in `LAUNCHES`. They are
-called by the wrappers `ops.ntt.ntt` / `ops.ntt.intt` (K1, K2),
+non-zero `cudaGetLastError()`, and count the launch in `LAUNCHES` and by
+its rows in `LAUNCH_ROWS`. They are called by the wrappers `ops.ntt.ntt` /
+`ops.ntt.intt` (K1, K2),
 `rlwe.rgsw.ext_prod` (K3 at alpha=1, K4 at alpha>1) and `ops.fft.fft` (K5),
 which hold the plain PyTorch versions beside them.
 """
@@ -43,6 +44,8 @@ SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu"}
 LAUNCHES: Dict[str, int] = {
     "ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0, "ext_prod_conv": 0, "fft": 0,
 }
+# the same launches by their rows ({rows: launches}; R for the external products)
+LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
 
 MIN_N, MAX_N = 1024, 32768
 # the FFT's length m = n/2 of the codec's ring dimension n
@@ -52,6 +55,12 @@ MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_N // 2
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_ROWS[k].clear()
+
+
+def _count(kind: str, rows: int) -> None:
+    LAUNCHES[kind] += 1
+    LAUNCH_ROWS[kind][rows] = LAUNCH_ROWS[kind].get(rows, 0) + 1
 
 
 def _nvcc() -> str:
@@ -183,6 +192,8 @@ def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor
     L, n = x.shape[-2], x.shape[-1]
     logn = _log_n(n)
     _require(x, "x", dev)
+    if x.data_ptr() % 16:
+        raise ValueError("x must start 16-byte aligned (K2 loads its rows as uint4)")
     _require(tw, "tw", dev, (L, n))
     _require(tw_sh, "tw_sh", dev, (L, n))
     for i, c in enumerate(per_limb):
@@ -197,7 +208,7 @@ def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor
                 *(c.data_ptr() for c in per_limb), rows, L, logn, _stream(dev),
             )
         _check_rc(lib, rc, kind)
-        LAUNCHES[kind] += 1
+        _count(kind, rows)
     return out
 
 
@@ -247,7 +258,7 @@ def _launch_ext_prod(kind: str, digits: torch.Tensor, dig_strides, D: int, key: 
             *(t.data_ptr() for t in tabs), out.data_ptr(), R, D, L_ext, logn, _stream(dev),
         )
     _check_rc(lib, rc, kind)
-    LAUNCHES[kind] += 1
+    _count(kind, R)
     return out
 
 
@@ -302,5 +313,5 @@ def fft(re: torch.Tensor, im: torch.Tensor, tw_re: torch.Tensor, tw_im: torch.Te
                             tw_re.data_ptr(), tw_im.data_ptr(), rows, m.bit_length() - 1,
                             _stream(dev))
         _check_rc(lib, rc, "fft")
-        LAUNCHES["fft"] += 1
+        _count("fft", rows)
     return out_re, out_im

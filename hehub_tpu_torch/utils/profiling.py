@@ -3,10 +3,10 @@ hehub_tpu/utils/profiling.py).
 
 `device_time` is the device time per call between CUDA events, after
 warm-up: host work that outlasts the kernels shows in it. `kernel_time` is
-the time per call inside the call's kernels alone, from a torch.profiler
-trace. `step_time` is the host clock around calls that end in
-`torch.cuda.synchronize()`, for work whose host part counts too (the host
-codec). `device_trace` traces one call with torch.profiler and reports how
+the time per call inside kernels, from a torch.profiler trace: this
+package's kernels, or a library call's. `step_time` is the host clock
+around calls that end in `torch.cuda.synchronize()`, for work whose host
+part counts too (the host codec). `device_trace` traces one call with torch.profiler and reports how
 long the device was busy in it and with what. All refuse to run without a
 CUDA device: there is no CPU number under a device metric's name.
 """
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import collections
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -61,37 +61,57 @@ def _is_ours(name: str) -> bool:
     return name.removeprefix("void ").startswith(_OURS)
 
 
-def kernel_time(fn: Callable[[], object], ours: bool, warmup: int = 2, iters: int = 10) -> float:
-    """Device seconds per call of `fn()` spent inside its kernels: the sum of
-    the CUDA kernel intervals (no copies, no gaps between launches) of
-    `iters` calls traced by torch.profiler after `warmup` calls, over
-    `iters`. `ours` True keeps only this package's kernels, False only the
-    others (a library call's). Raises if the trace holds no such kernel (the
-    profiler could not trace the card)."""
+def _kernel_spans(fn: Callable[[], object], ours: bool, warmup: int,
+                  iters: int) -> List[Tuple[str, float]]:
+    """(name, µs) of the CUDA kernels (no copies) of `iters` calls of `fn()`
+    traced by torch.profiler after `warmup` calls; `ours` True keeps only
+    this package's kernels, False only the others (a library call's). A
+    trace without such a kernel is taken again (the profiler now and then
+    records no device activity at all), twice at most; then this raises
+    (the profiler cannot trace the card)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     _require_cuda()
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    total_us, count, seen = 0.0, 0, set()
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name.startswith(("Memcpy", "Memset")):
-            continue
-        seen.add(e.name)
-        if _is_ours(e.name) != ours:
-            continue
-        total_us += e.time_range.end - e.time_range.start
-        count += 1
-    if not count:
-        raise RuntimeError(f"the profiler trace holds no kernel of the call (ours={ours}); "
-                           f"kernels seen: {sorted(seen)}")
-    return total_us / 1e6 / iters
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans, seen = [], set()
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or e.name.startswith(("Memcpy", "Memset")):
+                continue
+            seen.add(e.name)
+            if _is_ours(e.name) == ours:
+                spans.append((e.name, e.time_range.end - e.time_range.start))
+        if spans:
+            return spans
+    raise RuntimeError(f"the profiler trace holds no kernel of the call (ours={ours}); "
+                       f"kernels seen: {sorted(seen)}")
+
+
+def kernel_time(fn: Callable[[], object], ours: bool, warmup: int = 2, iters: int = 10) -> float:
+    """Device seconds per call of `fn()` spent inside kernels (no copies, no
+    gaps between launches), from a torch.profiler trace of `iters` calls
+    after `warmup` calls: this package's kernels if `ours`, else the others
+    (a library call's). Each kernel name adds its mean traced interval
+    times its launches per call (its traced count over `iters`, rounded),
+    so that a record the profiler drops (it loses one now and then) biases
+    neither side of a comparison."""
+    by_name: Dict[str, List[float]] = collections.defaultdict(list)
+    for name, us in _kernel_spans(fn, ours, warmup, iters):
+        by_name[name].append(us)
+    total = 0.0
+    for name, durations in by_name.items():
+        per_call = round(len(durations) / iters)
+        if per_call < 1 or len(durations) > per_call * iters:
+            raise RuntimeError(f"{len(durations)} launches of {name} traced for {iters} calls")
+        total += sum(durations) / len(durations) * per_call
+    return total / 1e6
 
 
 def _activity(name: str) -> str:

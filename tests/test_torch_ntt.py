@@ -1,8 +1,9 @@
 """hehub_tpu_torch.ops.ntt against hehub_tpu.ops.ntt: the plain forward
 chain bitwise, the plain inverse equal mod q (and, on the XLA path that
 the JAX package takes on the CPU, bitwise), round trips, the wrappers'
-input checks, and — on the card — the CUDA kernels K1/K2 bitwise against
-the plain chains.
+input checks, the register-group schedules of the CUDA kernels K1/K2
+applied with the plain butterflies, and — on the card — K1/K2 themselves
+bitwise against the plain chains.
 
 The JAX package is imported inside the tests that use it, so the card test
 also runs where JAX is not installed."""
@@ -13,6 +14,7 @@ import torch
 
 from hehub_tpu_torch import kernels
 from hehub_tpu_torch.core import context as tctx
+from hehub_tpu_torch.ops import modarith as ma
 from hehub_tpu_torch.ops import ntt as tn
 from tests.torch_support import as_numpy, cuda_device, lazy_residues  # noqa: F401
 
@@ -88,15 +90,140 @@ def test_u32_bits_round_trip():
     assert torch.equal(tn.from_u32_bits(bits), x)
 
 
+# log2 of the values a thread holds in csrc/ntt.cu's kernels (kElemsLog): the
+# index bits of each register group
+NTT_ELEMS_LOG = 4
+
+
+def _reg_index(tid, e, b):
+    """hh::reg_index of csrc/reglayout.cuh: value e of thread tid in the
+    register group on index bits [b, b + NTT_ELEMS_LOG)."""
+    return ((tid >> b) << (b + NTT_ELEMS_LOG)) | (e << b) | (tid & ((1 << b) - 1))
+
+
+def _reg_groups(logh, inverse):
+    """(B, LO, HI) of csrc/ntt.cuh's register groups on a half row of 2^logh
+    values, in the order the chain runs them: the group at bit B runs the
+    stages on bits [LO, HI). Forward from B = logh - EB down to 0, inverse
+    from 0 up to logh - EB; where EB does not divide logh the last group is
+    partial."""
+    eb, out = NTT_ELEMS_LOG, []
+    if inverse:
+        B, lo = 0, 0
+        while True:
+            out.append((B, lo, B + eb))
+            if B + eb >= logh:
+                return out
+            B, lo = (B + eb if B + 2 * eb <= logh else logh - eb), B + eb
+    B, hi = logh - eb, logh
+    while True:
+        out.append((B, B, hi))
+        if B == 0:
+            return out
+        B, hi = (B - eb if B > eb else 0), B
+
+
+def _reg_schedule(x, tw, tw_sh, q, two_q, last=None):
+    """csrc/ntt.cu's schedule with the plain butterflies of ops/modarith.py
+    on rows x [..., L, n]. Forward: stage 0 pairs the two halves under
+    tw[1]; then each half h (one block) runs the other stages in register
+    groups. Inverse (`last` = (w_last, w_last_sh, n_inv, n_inv_sh) [L, 1]):
+    each half runs all stages but the last in register groups; then the
+    last pairs the halves and folds n^-1. A group gathers every thread's
+    values at reg_index ([..., L, T, E]), runs its stages, the butterfly of
+    values e_lo, e_lo + 2^(beta - B) under twiddle
+    (2 + h) 2^(logh - 1 - beta) + (tid >> B) 2^(B + EB - 1 - beta)
+    + (e_lo >> (beta - B + 1)), and puts them back."""
+    n = x.shape[-1]
+    H = n // 2
+    logh, eb = H.bit_length() - 1, NTT_ELEMS_LOG
+    tid = torch.arange(H >> eb)[:, None]
+    e = torch.arange(1 << eb)[None, :]
+    q3, two_q3 = q[..., None], two_q[..., None]
+    inverse = last is not None
+    x = x.clone()
+    if not inverse:
+        wh = ma.shoup_mul_lazy(x[..., H:], tw[:, 1:2], tw_sh[:, 1:2], q)
+        x = torch.cat([ma.add_lazy(x[..., :H], wh, two_q), ma.sub_lazy(x[..., :H], wh, two_q)], -1)
+    for h in (0, 1):
+        part = x[..., h * H:(h + 1) * H].clone()
+        for B, LO, HI in _reg_groups(logh, inverse):
+            idx = _reg_index(tid, e, B)
+            v = part[..., idx]
+            for beta in (range(LO, HI) if inverse else range(HI - 1, LO - 1, -1)):
+                lb = beta - B
+                lo = torch.tensor([k for k in range(1 << eb) if not k >> lb & 1])
+                hi = lo + (1 << lb)
+                t = (((2 + h) << (logh - 1 - beta)) + ((tid >> B) << (B + eb - 1 - beta))
+                     + (lo[None, :] >> (lb + 1)))
+                w, w_sh = tw[:, t], tw_sh[:, t]
+                a, b = v[..., lo], v[..., hi]
+                if inverse:
+                    new_lo = ma.add_lazy(a, b, two_q3)
+                    new_hi = ma.shoup_mul_lazy(a + two_q3 - b, w, w_sh, q3)
+                else:
+                    wh = ma.shoup_mul_lazy(b, w, w_sh, q3)
+                    new_lo, new_hi = ma.add_lazy(a, wh, two_q3), ma.sub_lazy(a, wh, two_q3)
+                v[..., lo], v[..., hi] = new_lo, new_hi
+            part[..., idx] = v
+        x[..., h * H:(h + 1) * H] = part
+    if inverse:
+        a, b = x[..., :H], x[..., H:]
+        w, w_sh, n_inv, n_inv_sh = last
+        x = torch.cat([ma.shoup_mul_lazy(a + b, n_inv, n_inv_sh, q),
+                       ma.shoup_mul_lazy(a + two_q - b, w, w_sh, q)], -1)
+    return x
+
+
+@pytest.mark.parametrize("n", [1024, 16384])
+def test_register_schedules_are_bitwise_plain(n):
+    """K1's and K2's schedules (the stage that pairs the halves; each half's
+    register groups, their layouts and twiddle indices, the partial group:
+    13 = 4+4+4+1 and 9 = 4+4+1 bits; the inverse's n^-1 fold), applied with
+    the plain butterflies: bitwise ntt_fwd / ntt_inv. The layouts the
+    kernels load and store hold too: the forward chain's first group and the
+    inverse's last hold values at stride T, the other ends 2^EB contiguous
+    values a thread."""
+    ctx = _port_ctx(n)
+    x = torch.from_numpy(
+        lazy_residues(np.random.default_rng(n), (2,), ctx.moduli_of(IDS), n).astype(np.int64))
+    fwd = [ctx.device_rows(nm, IDS, "cpu") for nm in tn.FWD_TABLES]
+    inv = [ctx.device_rows(nm, IDS, "cpu") for nm in tn.INV_TABLES]
+    assert torch.equal(_reg_schedule(x, *fwd), tn.ntt_fwd(x, *fwd))
+    assert torch.equal(_reg_schedule(x, *inv[:4], last=inv[4:]), tn.ntt_inv(x, *inv))
+    logh, eb = n.bit_length() - 2, NTT_ELEMS_LOG
+    T = 1 << (logh - eb)
+    tid, e = torch.arange(T)[:, None], torch.arange(1 << eb)[None, :]
+    for groups in (_reg_groups(logh, False), _reg_groups(logh, True)[::-1]):
+        assert any(hi - lo < eb for _, lo, hi in groups)  # a partial group ran
+        assert torch.equal(_reg_index(tid, e, groups[0][0]), e * T + tid)
+        assert torch.equal(_reg_index(tid, e, groups[-1][0]), tid * (1 << eb) + e)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,batch", [(1024, (3,)), (16384, (2,))])
-def test_kernels_match_plain_on_card(cuda_device, n, batch):  # noqa: F811
+@pytest.mark.parametrize(
+    "n,batch,L,against",
+    [(1024, 3, 4, "cpu"), (16384, 2, 4, "cpu")]
+    + [(1 << logn, batch, L, "card") for logn in range(10, 16) for batch in (1, 3, 128, 133)
+       for L in (1, 4)])
+def test_kernels_match_plain_on_card(cuda_device, n, batch, L, against):  # noqa: F811
+    """K1 and K2 on [batch, L, n], one launch each, bitwise against the plain
+    chains: on the CPU (through the wrappers), or on the same card at every
+    n the kernels take and around one row per SM (133 is one more than the
+    SM count)."""
     ctx = _port_ctx(n, levels=3)
-    ids = (0, 1, 2, 3)
-    x = torch.from_numpy(lazy_residues(RNG, batch, ctx.moduli_of(ids), n).astype(np.int64))
+    ids = tuple(range(L))
+    x = torch.from_numpy(lazy_residues(RNG, (batch,), ctx.moduli_of(ids), n).astype(np.int64))
     xd = x.to(cuda_device)
-    fwd = tn.ntt(ctx, xd, ids)
-    assert torch.equal(fwd.cpu(), tn.ntt(ctx, x, ids))
-    inv = tn.intt(ctx, xd, ids)
-    assert torch.equal(inv.cpu(), tn.intt(ctx, x, ids))
+    before = kernels.LAUNCHES["ntt_fwd"], kernels.LAUNCHES["ntt_inv"]
+    fwd, inv = tn.ntt(ctx, xd, ids), tn.intt(ctx, xd, ids)
+    assert (kernels.LAUNCHES["ntt_fwd"], kernels.LAUNCHES["ntt_inv"]) == (before[0] + 1,
+                                                                          before[1] + 1)
+    if against == "cpu":
+        assert torch.equal(fwd.cpu(), tn.ntt(ctx, x, ids))
+        assert torch.equal(inv.cpu(), tn.intt(ctx, x, ids))
+    else:
+        tabs = lambda names: [ctx.device_rows(nm, ids, cuda_device) for nm in names]  # noqa: E731
+        assert torch.equal(fwd, tn.ntt_fwd(xd, *tabs(tn.FWD_TABLES)))
+        assert torch.equal(inv, tn.ntt_inv(xd, *tabs(tn.INV_TABLES)))
     torch.cuda.synchronize()
