@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of hehub_tpu_torch on one NVIDIA card (H100): builds the CUDA
 kernels, holds each against its plain PyTorch version at the shapes of the
-paths that run it, then drives the CKKS main path and the hybrid
-key-switching path end to end and checks their results.
+paths that run it, then drives the CKKS main path, the hybrid
+key-switching path, the small-ring path and the circuits path end to end
+and checks their results.
 
     python3 chip_smoke.py
 
@@ -22,13 +23,19 @@ Phases, each printing its own lines:
      peak rate, the larger) and the ratio of the two, and K5 beside
      torch.fft.fft, timed both ways too, and kernel-only against it at
      [130, 8192] and [64, 16384] as well (the card tests hold K1-K5 at
-     every size they take); after phases 4 and 5, whose launch records
+     every size they take); after phases 4, 5 and 7, whose launch records
      give its shapes, K1 and K2 again at n=16384 at every row count the
-     two paths launched them with, each bitwise against its plain chain and
+     paths launched them with, each bitwise against its plain chain and
      timed kernel-only and per call beside its bound at those rows, and
      the launch-weighted sums of those kernel-only times (Σ over a run's or
      a step's launches of the time at their row count) per path, per step
-     and over both paths;
+     and over all paths;
+  3b. small rings: K1-K4 bitwise against their plain versions at n = 8,
+     16, 64, 256, 512 (their several-rows-a-block instantiations), 1, 3
+     and 133 rows, 1 and 4 limbs (+2 special), K5 at m = 4, 8, 128, 256;
+     each timed as in phase 3 at the small-ring path's shapes (n=256: K1/K2
+     on [64, 2, 256], K3 at R=64, l=2, L_ext=3, K4 at R=64, D=2, L_ext=6,
+     K5 on [64, 128]);
   4. main path at n=16384, 7+1 limbs, batch 64, keys and noise from a
      seeded CUDA generator: keygen, relin and rotation keys, encode +
      encrypt (device codec), mult + relin + rescale, rotate(1), decrypt +
@@ -46,9 +53,23 @@ Phases, each printing its own lines:
      K5 must have launched during this phase; a CPU replay of 4 rows gives
      bitwise the same ciphertexts; then mult and rotate times and traces,
      and the K1/K2 launch records as in phase 4;
-  6. a `kernels` JSON line (K1 and K2 with `by_rows`, their times at each
-     row count, and `launch_weighted_kernel_ms`); the card line; last, the
-     result line {"ok": true, "device": {...}}.
+  6. small-ring path: phase 4's steps at tests/test_core.py:121's n=256,
+     2+1 limbs, batch 64 (K1-K3, K5 on their small instantiations), with
+     its CPU replay, times and traces; then mult + relin + rescale at
+     alpha=2 on 4+2 limbs (K4), 4 rows replayed bitwise;
+  7. circuits path on phase 5's configuration, batch 16, keys made on the
+     card: matrix_vector_mul of a 64 x 64 matrix (narrow, hoisted: 126
+     alpha=2 rotation keys), sign (2 iterations), inverse (3 iterations)
+     and rotate_accumulate (steps 0, 2, 5), decoded within the reference
+     tests' bounds; K1, K2, K4 and K5 must have launched; 2 rows replayed
+     on the CPU bitwise; each circuit's CUDA-event time per ciphertext and
+     a trace;
+  8. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
+     `by_rows`, their times at each row count, and
+     `launch_weighted_kernel_ms`; then the five small-ring records
+     `*_small_n` / `fft_small_m`, whose launches are the small-ring
+     path's); the card line; last, the result line {"ok": true, "device":
+     {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
 """
@@ -63,6 +84,8 @@ import numpy as np
 import torch
 
 from hehub_tpu_torch import config, kernels
+from hehub_tpu_torch.circuits import linear_algebra as la
+from hehub_tpu_torch.circuits import poly_eval as pe
 from hehub_tpu_torch.core.context import create_ckks_params, make_context
 from hehub_tpu_torch.core.rns import RnsPoly
 from hehub_tpu_torch.models import ckks
@@ -98,6 +121,32 @@ MAX_REL_ERR_FFT = 2.0**-44
 # K5 timed against torch.fft.fft off the codec's [64, 8192]: (rows, m)
 FFT_OTHER_SHAPES = ((130, 8192), (64, 16384))
 
+# Small rings: the kernels' several-rows-a-block instantiations checked at
+# n = 8 .. 512 (K5 at m = 4 .. 256), at these row counts and limbs; timed
+# at the small-n path's ring SMALL_N (K5 at SMALL_N / 2)
+SMALL_NS = (8, 16, 64, 256, 512)
+SMALL_FFT_MS = (4, 8, 128, 256)
+SMALL_ROWS = (1, 3, 133)
+SMALL_LIMBS = (1, 4)
+# the small-n path: tests/test_core.py:121's n=256, 2 + 1 limbs; its
+# alpha=2 step: 4 + 2 limbs, as tests/test_torch_hybrid.py
+SMALL_N = 256
+SMALL_LEVELS = 2
+SMALL_HYBRID_LEVELS = 4
+# The circuits path on the hybrid configuration: batch 16; a 64 x 64 matrix
+# (126 rotation keys); sign of |v| in [0.6, 1], 2 iterations; inverse of v
+# in [0.6, 1.4], 3 iterations; a sum of three rotations by 0, 2 and 5. The
+# bounds are the reference tests': tests/test_linalg.py:34,
+# tests/test_poly_eval.py:83 and :73, tests/test_ckks.py:193.
+CIRCUIT_BATCH = 16
+MV_DIM = 64
+ACC_STEPS = (0, 2, 5)
+MAX_ERR_MV = 2.0**-7
+MAX_ERR_SIGN = 0.15
+RTOL_INVERSE = 3e-2
+MAX_ERR_ACC = 2.0**-8
+CIRCUIT_REPLAY_ROWS = 2
+
 # Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
 HBM_BYTES_PER_S = 3.35e12  # data sheet
 FP64_PER_S = 34e12  # data sheet, FP64 outside the tensor cores
@@ -114,6 +163,22 @@ INV_BUTTERFLY_OPS = 9
 INV_LAST_BUTTERFLY_OPS = 11
 CONTRACT_OPS = 10
 FFT_BUTTERFLY_FLOPS = 10
+
+
+# each kernel's CUDA source and the TPU kernel it replaces
+ORIGIN = {
+    "ntt_fwd": ("hehub_tpu_torch/csrc/ntt.cu", "hehub_tpu/ops/pallas/ntt_pallas.py:207"),
+    "ntt_inv": ("hehub_tpu_torch/csrc/ntt.cu", "hehub_tpu/ops/pallas/ntt_pallas.py:215"),
+    "ext_prod": ("hehub_tpu_torch/csrc/extprod.cu", "hehub_tpu/ops/pallas/extprod_pallas.py:27"),
+    "ext_prod_conv": ("hehub_tpu_torch/csrc/extprod.cu",
+                      "hehub_tpu/ops/pallas/extprod_pallas.py:52"),
+    "fft": ("hehub_tpu_torch/csrc/fft.cu", "hehub_tpu/ops/pallas/fft_pallas.py:60"),
+}
+
+
+def origin(kind):
+    source, replaces = ORIGIN[kind]
+    return dict(route="cuda", source=source, replaces=replaces)
 
 
 def check(cond, msg):
@@ -222,8 +287,7 @@ def kernels_vs_plain(ctx, hctx, dev):
     p1 = nttmod.ntt_fwd(x, *fwd64)
     check(torch.equal(k1, p1), "K1 ntt_fwd differs from the plain chain")
     records["ntt_fwd"] = dict(
-        route="cuda", source="hehub_tpu_torch/csrc/ntt.cu",
-        replaces="hehub_tpu/ops/pallas/ntt_pallas.py:207",
+        **origin("ntt_fwd"),
         match="bitwise", max_abs_err=int((k1 - p1).abs().max()),
         **timed(lambda: kernels.ntt_fwd(x32, *fwd32)),
         plain_ms=device_time(lambda: nttmod.ntt_fwd(x, *fwd64), 1, 3) * 1e3,
@@ -236,8 +300,7 @@ def kernels_vs_plain(ctx, hctx, dev):
     back = nttmod.intt(ctx, k1, ids)
     check(torch.equal(back % q, x % q), "K2(K1(x)) is not x mod q")
     records["ntt_inv"] = dict(
-        route="cuda", source="hehub_tpu_torch/csrc/ntt.cu",
-        replaces="hehub_tpu/ops/pallas/ntt_pallas.py:215",
+        **origin("ntt_inv"),
         match="bitwise vs plain; round trip equal mod q",
         max_abs_err=int((k2 - p2).abs().max()),
         **timed(lambda: kernels.ntt_inv(x32, *inv32)),
@@ -261,8 +324,7 @@ def kernels_vs_plain(ctx, hctx, dev):
     check(err3 == 0, "K3 ext_prod differs from ks_contract(ks_digits(...))")
     L_ext = len(ids_ext)
     records["ext_prod"] = dict(
-        route="cuda", source="hehub_tpu_torch/csrc/extprod.cu",
-        replaces="hehub_tpu/ops/pallas/extprod_pallas.py:27",
+        **origin("ext_prod"),
         match="bitwise", max_abs_err=err3,
         **timed(lambda: kernels.ext_prod(d32, key32, *ext32)),
         plain_ms=device_time(lambda: plain_ext_prod(ctx, digits, rlk), 1, 3) * 1e3,
@@ -288,8 +350,7 @@ def kernels_vs_plain(ctx, hctx, dev):
     err4 = max(int((k4[0] - p4.c0.data).abs().max()), int((k4[1] - p4.c1.data).abs().max()))
     check(err4 == 0, "K4 ext_prod_conv differs from ks_contract(ntt(digits))")
     records["ext_prod_conv"] = dict(
-        route="cuda", source="hehub_tpu_torch/csrc/extprod.cu",
-        replaces="hehub_tpu/ops/pallas/extprod_pallas.py:52",
+        **origin("ext_prod_conv"),
         match="bitwise", max_abs_err=err4,
         **timed(lambda: kernels.ext_prod_conv(c32, h_key32, *h_ext32)),
         plain_ms=device_time(lambda: plain_ext_prod_conv(hctx, conv, h_rlk), 1, 3) * 1e3,
@@ -315,8 +376,7 @@ def kernels_vs_plain(ctx, hctx, dev):
     rel5 = float(np.abs(got - exact).max() / np.abs(exact).max())
     check(rel5 <= MAX_REL_ERR_FFT, f"K5 error {rel5} relative to max|X| above 2^-44")
     records["fft"] = dict(
-        route="cuda", source="hehub_tpu_torch/csrc/fft.cu",
-        replaces="hehub_tpu/ops/pallas/fft_pallas.py:60",
+        **origin("fft"),
         match=f"bitwise vs plain; vs numpy complex128 {rel5:.3e} of max|X|",
         max_abs_err=err5,
         **timed(lambda: kernels.fft(re, im, tw_re, tw_im)),
@@ -333,6 +393,13 @@ def kernels_vs_plain(ctx, hctx, dev):
         from_u32_ms=device_time(lambda: nttmod.from_u32_bits(x32)) * 1e3,
         key_to_u32_ms=device_time(lambda: nttmod.to_u32_bits(rlk.data[:LEVELS])) * 1e3,
     )
+    summarize(records)
+    print(f"[kernels] int64<->int32 conversions at [{BATCH},{LEVELS},{N}]: {json.dumps(conv_ms)}")
+    return records
+
+
+def summarize(records):
+    """Check every record bitwise, add its ratios and print it."""
     for name, rec in records.items():
         check(rec["max_abs_err"] == 0, f"{name} is not bitwise equal to its plain version")
         rec.setdefault("library_kernel_ms", None)
@@ -348,8 +415,6 @@ def kernels_vs_plain(ctx, hctx, dev):
               f"library call {rec['library_ms']} ms, library kernel-only "
               f"{rec['library_kernel_ms']} ms, kernel-only / library kernel-only "
               f"{rec['kernel_over_library']}")
-    print(f"[kernels] int64<->int32 conversions at [{BATCH},{LEVELS},{N}]: {json.dumps(conv_ms)}")
-    return records
 
 
 def ntt_row_sweep(hctx, dev, path_rows):
@@ -375,34 +440,42 @@ def ntt_row_sweep(hctx, dev, path_rows):
             got = nttmod.from_u32_bits(launch(x32, *tabs32))
             want = plain(x, *(hctx.device_rows(nm, ids, dev) for nm in names))
             check(torch.equal(got, want), f"{kind} at {rows} rows differs from the plain chain")
-            rec = dict(limbs=L, **timed(functools.partial(launch, x32, *tabs32)),
-                       **bound(2 * rows * N * 4, ntt_ops(rows, N, kind == "ntt_inv"),
-                               INT32_PER_S))
-            rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
+            call = functools.partial(launch, x32, *tabs32)
+            try:
+                times = timed(call)
+            except RuntimeError as err:  # the profiler lost the trace's records
+                times = dict(ms=device_time(call) * 1e3, kernel_ms=None, profiler_fault=str(err))
+            rec = dict(limbs=L, **times, **bound(2 * rows * N * 4,
+                                                 ntt_ops(rows, N, kind == "ntt_inv"), INT32_PER_S))
+            rec["kernel_over_bound"] = (rec["kernel_ms"] / rec["bound_ms"] if rec["kernel_ms"]
+                                        else None)
             out[kind][rows] = rec
             del x, got, want
     for kind in out:
         for rows, rec in out[kind].items():
             print(f"[kernels] {kind} at [{rows // rec['limbs']}, {rec['limbs']}, {N}] ({rows} "
-                  f"rows): bitwise vs plain, kernel-only {rec['kernel_ms']:.4f} ms, call "
+                  f"rows): bitwise vs plain, kernel-only {rec['kernel_ms']} ms, call "
                   f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}, "
-                  f"kernel-only / bound {rec['kernel_over_bound']:.3f}")
+                  f"kernel-only / bound {rec['kernel_over_bound']}"
+                  + (f", {rec['profiler_fault']}" if "profiler_fault" in rec else ""))
     return out
 
 
 def weighted_ms(rows_record, times):
     """Σ over the launches of a {rows: launches} record of the kernel-only
-    ms at their row count."""
-    return sum(count * times[rows]["kernel_ms"] for rows, count in rows_record.items())
+    ms at their row count (the call ms where the profiler lost the kernel
+    time)."""
+    return sum(count * (times[rows]["kernel_ms"] or times[rows]["ms"])
+               for rows, count in rows_record.items())
 
 
 def launch_weighted(sweep, path_rows, path_steps):
     """The kernel-only time of each kernel's launches, summed with the times
-    of the row-count sweep: per path run, per step, and over both paths."""
+    of the row-count sweep: per path run, per step, and over all paths."""
     out = {}
     for kind, times in sweep.items():
         rec = {tag: weighted_ms(path_rows[tag][kind], times) for tag in path_rows}
-        rec["both_paths"] = sum(rec.values())
+        rec["all_paths"] = sum(rec.values())
         rec["steps"] = {f"{tag} {step}": weighted_ms(r[kind], times)
                         for tag, steps in path_steps.items() for step, r in steps.items()}
         out[kind] = rec
@@ -451,11 +524,13 @@ def cpu_replay(tag, ctx, params, ca, cb, rlk, rk, sk, card_cts, out):
 
 def run_path(tag, params, ctx, dev, alpha, seed):
     """Keygen, keys, encode + encrypt, mult + relin + rescale, rotate(1),
-    decrypt + decode, between a reset and a read of the launch counts.
-    Returns (launches, errors, state for the replay and the timings)."""
+    decrypt + decode of a batch of BATCH, between a reset and a read of the
+    launch counts. Returns (launches, errors, state for the replay and the
+    timings)."""
+    n = params.dimension
     rng = np.random.default_rng(seed)
-    a = rng.uniform(-1, 1, (BATCH, N // 2))
-    b = rng.uniform(-1, 1, (BATCH, N // 2))
+    a = rng.uniform(-1, 1, (BATCH, n // 2))
+    b = rng.uniform(-1, 1, (BATCH, n // 2))
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     torch.cuda.synchronize()
@@ -476,13 +551,13 @@ def run_path(tag, params, ctx, dev, alpha, seed):
     rows = {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS}
 
     L = len(params.moduli)
-    check(out.shape == (BATCH, N // 2), f"{tag}: decoded shape {out.shape}")
+    check(out.shape == (BATCH, n // 2), f"{tag}: decoded shape {out.shape}")
     check(bool(np.isfinite(out).all() and np.isfinite(out_prod).all()),
           f"{tag}: decoded values not finite")
     check(rot.limb_ids == tuple(range(L - 1)), f"{tag}: result limbs {rot.limb_ids}")
     err_mult = float(np.abs(out_prod - a * b).max())
     err_rot = float(np.abs(out - np.roll(a * b, 1, axis=-1)).max())
-    print(f"[{tag}] n={N} L={L}+{len(params.special_mods)} alpha={alpha} batch={BATCH}: "
+    print(f"[{tag}] n={n} L={L}+{len(params.special_mods)} alpha={alpha} batch={BATCH}: "
           f"keygen..decode {wall:.3f} s (host clock), max|err| of mult+rescale vs a*b = "
           f"{err_mult:.3e} (log2 {np.log2(err_mult):.2f}), of rotate(mult, 1) vs "
           f"np.roll(a*b, 1) = {err_rot:.3e} (log2 {np.log2(err_rot):.2f}), "
@@ -587,15 +662,340 @@ def hybrid_path(dev):
     return launches, s["rows"], step_rows("hybrid", steps)
 
 
+def small_case(n, levels, dev):
+    """A context of `levels` + 2 limbs at n (a 2^18 scale, so that one limb
+    is allowed): (ctx, ciphertext limbs, extended limbs, kernel tables of
+    the extended limbs)."""
+    ctx = make_context(create_ckks_params(n, 18, levels, use_security_budget=False,
+                                          num_special=2))
+    ids = tuple(range(levels))
+    ids_ext = ids + ctx.special_indices
+    return ctx, ids, ids_ext, ext_tables(ctx, ids_ext, dev)
+
+
+def small_inputs(ctx, ids, ids_ext, rows, gen):
+    """Random inputs of K1-K4 at rows R: lazy x [R, L, n], strict K3 digits
+    [R, L, n], K4 digits [R, ceil(L / 2), L_ext, n] and a lazy key [L, 2,
+    L_ext, n]."""
+    dev, n = gen.device, ctx.params.dimension
+    x = lazy_residues(gen, (rows, len(ids), n), ctx.device_rows("two_q", ids, dev))
+    digits = torch.stack([torch.randint(0, m, (rows, n), generator=gen, device=dev)
+                          for m in ctx.moduli_of(ids)], dim=1)
+    two_q_ext = ctx.device_rows("two_q", ids_ext, dev)
+    conv = lazy_residues(gen, (rows, -(-len(ids) // ALPHA), len(ids_ext), n), two_q_ext)
+    key = lazy_residues(gen, (len(ids), 2, len(ids_ext), n), two_q_ext)
+    return x, digits, conv, rgsw_mod.RgswCt(key, ids_ext)
+
+
+def small_kernels(dev):
+    """Phase 3b: K1-K4 bitwise against their plain versions at every n in
+    SMALL_NS, SMALL_ROWS rows and SMALL_LIMBS limbs (+ 2 special), K5 at
+    every m in SMALL_FFT_MS and SMALL_ROWS rows; then each timed at the
+    small-n path's shapes: K1/K2 on [64, 2, 256], K3 at R=64, l=2, L_ext=3,
+    K4 at R=64, D=2, L_ext=6, K5 on [64, 128]. Returns the records."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cases = 0
+    for n in SMALL_NS:
+        for levels in SMALL_LIMBS:
+            ctx, ids, ids_ext, tabs = small_case(n, levels, dev)
+            for rows in SMALL_ROWS:
+                x, digits, conv, key = small_inputs(ctx, ids, ids_ext, rows, gen)
+                for kind, names, plain, launch in (
+                        ("ntt_fwd", nttmod.FWD_TABLES, nttmod.ntt_fwd, kernels.ntt_fwd),
+                        ("ntt_inv", nttmod.INV_TABLES, nttmod.ntt_inv, kernels.ntt_inv)):
+                    got = nttmod.from_u32_bits(launch(
+                        nttmod.to_u32_bits(x), *(ctx.device_rows(nm, ids, dev, torch.int32)
+                                                 for nm in names)))
+                    want = plain(x, *(ctx.device_rows(nm, ids, dev) for nm in names))
+                    check(torch.equal(got, want), f"{kind} at [{rows}, {levels}, {n}]")
+                key32 = nttmod.to_u32_bits(key.data)
+                for kind, got, want in (
+                        ("ext_prod", kernels.ext_prod(nttmod.to_u32_bits(digits), key32, *tabs),
+                         plain_ext_prod(ctx, digits, key)),
+                        ("ext_prod_conv",
+                         kernels.ext_prod_conv(nttmod.to_u32_bits(conv), key32, *tabs),
+                         plain_ext_prod_conv(ctx, conv, key))):
+                    got = nttmod.from_u32_bits(got)
+                    check(torch.equal(got[0], want.c0.data) and torch.equal(got[1], want.c1.data),
+                          f"{kind} at n={n}, R={rows}, L={levels}")
+                cases += 1
+    for m in SMALL_FFT_MS:
+        tw = fftmod._device_tables(m, str(dev))
+        for rows in SMALL_ROWS:
+            re, im = (torch.rand((rows, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+                      for _ in range(2))
+            got, want = kernels.fft(re, im, *tw), fftmod.fft_plain(re, im, m)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"fft at [{rows}, {m}]")
+    torch.cuda.synchronize()
+    print(f"[small kernels] K1-K4 bitwise vs plain at n in {SMALL_NS}, rows {SMALL_ROWS}, "
+          f"limbs {SMALL_LIMBS} (+2 special): {cases} cases each; K5 bitwise at m in "
+          f"{SMALL_FFT_MS}, rows {SMALL_ROWS}")
+
+    n, R = SMALL_N, BATCH
+    match = f"bitwise vs plain at {cases} cases of n = 8..512 and here"
+    records = {}
+    ctx, ids, ids_ext, tabs = small_case(n, SMALL_LEVELS, dev)
+    x, digits, _, key = small_inputs(ctx, ids, ids_ext[: SMALL_LEVELS + 1], R, gen)
+    x32 = nttmod.to_u32_bits(x)
+    for kind, names, plain, launch in (
+            ("ntt_fwd", nttmod.FWD_TABLES, nttmod.ntt_fwd, kernels.ntt_fwd),
+            ("ntt_inv", nttmod.INV_TABLES, nttmod.ntt_inv, kernels.ntt_inv)):
+        t32 = [ctx.device_rows(nm, ids, dev, torch.int32) for nm in names]
+        t64 = [ctx.device_rows(nm, ids, dev) for nm in names]
+        err = int((nttmod.from_u32_bits(launch(x32, *t32)) - plain(x, *t64)).abs().max())
+        records[f"{kind}_small_n"] = dict(
+            **origin(kind), match=match, shape=f"[{R}, {SMALL_LEVELS}, {n}]", max_abs_err=err,
+            **timed(functools.partial(launch, x32, *t32)),
+            plain_ms=device_time(lambda: plain(x, *t64), 1, 3) * 1e3, library_ms=None,
+            **bound(2 * x32.numel() * 4, ntt_ops(R * SMALL_LEVELS, n, kind == "ntt_inv"),
+                    INT32_PER_S))
+    # K3 at the small path's relinearisation: l = 2 digits, L_ext = 3 limbs
+    tabs3 = ext_tables(ctx, key.limb_ids, dev)
+    d32, key32 = nttmod.to_u32_bits(digits), nttmod.to_u32_bits(key.data)
+    got = nttmod.from_u32_bits(kernels.ext_prod(d32, key32, *tabs3))
+    want = plain_ext_prod(ctx, digits, key)
+    L_ext = len(key.limb_ids)
+    records["ext_prod_small_n"] = dict(
+        **origin("ext_prod"), match=match, shape=f"R={R}, l={SMALL_LEVELS}, L_ext={L_ext}, n={n}",
+        max_abs_err=max(int((got[0] - want.c0.data).abs().max()),
+                        int((got[1] - want.c1.data).abs().max())),
+        **timed(lambda: kernels.ext_prod(d32, key32, *tabs3)),
+        plain_ms=device_time(lambda: plain_ext_prod(ctx, digits, key), 1, 3) * 1e3,
+        library_ms=None,
+        **bound(4 * (d32.numel() + key32.numel() + 2 * R * L_ext * n),
+                ntt_ops(R * SMALL_LEVELS * L_ext, n)
+                + R * SMALL_LEVELS * L_ext * n * 2 * CONTRACT_OPS,
+                INT32_PER_S))
+    # K4 at the small path's alpha=2 step: D = 2 digits, L_ext = 6 limbs
+    ctx, ids, ids_ext, tabs = small_case(n, SMALL_HYBRID_LEVELS, dev)
+    _, _, conv, key = small_inputs(ctx, ids, ids_ext, R, gen)
+    c32, key32 = nttmod.to_u32_bits(conv), nttmod.to_u32_bits(key.data)
+    got = nttmod.from_u32_bits(kernels.ext_prod_conv(c32, key32, *tabs))
+    want = plain_ext_prod_conv(ctx, conv, key)
+    records["ext_prod_conv_small_n"] = dict(
+        **origin("ext_prod_conv"), match=match,
+        shape=f"R={R}, D={conv.shape[1]}, L_ext={len(ids_ext)}, n={n}",
+        max_abs_err=max(int((got[0] - want.c0.data).abs().max()),
+                        int((got[1] - want.c1.data).abs().max())),
+        **timed(lambda: kernels.ext_prod_conv(c32, key32, *tabs)),
+        plain_ms=device_time(lambda: plain_ext_prod_conv(ctx, conv, key), 1, 3) * 1e3,
+        library_ms=None,
+        **bound(4 * (c32.numel() + conv.shape[1] * 2 * len(ids_ext) * n + 2 * R * len(ids_ext) * n),
+                ntt_ops(c32.numel() // n, n) + c32.numel() * 2 * CONTRACT_OPS, INT32_PER_S))
+    # K5 at the small path's codec: [64, 128]
+    m = n // 2
+    tw = fftmod._device_tables(m, str(dev))
+    re, im = (torch.rand((R, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+              for _ in range(2))
+    got, want = kernels.fft(re, im, *tw), fftmod.fft_plain(re, im, m)
+    natural = torch.complex(re, im)
+    records["fft_small_m"] = dict(
+        **origin("fft"), shape=f"[{R}, {m}]",
+        match=f"bitwise vs plain at {len(SMALL_FFT_MS) * len(SMALL_ROWS)} cases of m = 4..256 "
+              "and here",
+        max_abs_err=max(float((got[0] - want[0]).abs().max()),
+                        float((got[1] - want[1]).abs().max())),
+        **timed(lambda: kernels.fft(re, im, *tw)),
+        plain_ms=device_time(lambda: fftmod.fft_plain(re, im, m), 1, 3) * 1e3,
+        library_ms=device_time(lambda: torch.fft.fft(natural)) * 1e3,
+        library_kernel_ms=kernel_time(lambda: torch.fft.fft(natural), ours=False) * 1e3,
+        **bound(4 * re.numel() * 8 + 2 * tw[0].numel() * 8,
+                R * (m // 2) * (m.bit_length() - 1) * FFT_BUTTERFLY_FLOPS, FP64_PER_S))
+    summarize(records)
+    return records
+
+
+def small_path(dev):
+    """Phase 6: the main path's steps at tests/test_core.py:121's n=256, 2 + 1
+    limbs, batch 64, on the card (K1-K3 and K5 on their small-n
+    instantiations), replayed on the CPU; then mult + relin + rescale at
+    alpha=2 on 4 + 2 limbs (K4). Returns the launch counts of both runs."""
+    params = create_ckks_params(SMALL_N, scaling_bits=28, num_levels=SMALL_LEVELS,
+                                use_security_budget=False)
+    ctx = make_context(params)
+    launches, err_mult, err_rot, s = run_path("small", params, ctx, dev, 1, 9)
+    check(err_mult <= MAX_ERR_MULT, f"small-n mult decode error {err_mult} above {MAX_ERR_MULT}")
+    check(err_rot <= MAX_ERR_MULT, f"small-n rotate decode error {err_rot} above {MAX_ERR_MULT}")
+    for name in ("ntt_fwd", "ntt_inv", "ext_prod", "fft"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the small-n path")
+    cpu_replay("small", ctx, params, s["ca"], s["cb"], s["rlk"], s["rk"], s["sk"],
+               (s["prod"], s["rot"]), s["out"])
+    ca, cb, prod, rlk, rk = (s[k] for k in ("ca", "cb", "prod", "rlk", "rk"))
+    steps = {
+        "mult+relin+rescale": lambda: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk)),
+        "rotate(1)": lambda: ckks.rotate(ctx, prod, rk, 1),
+    }
+    metrics = {f"ckks_{k}_ms_per_op_small": device_time(fn, 1, 5) * 1e3 / BATCH
+               for k, fn in zip(("mult", "rotate"), steps.values())}
+    print(f"[small] times (CUDA events, per ciphertext of a batch-{BATCH} call): "
+          + json.dumps(metrics))
+    print_traces("small", steps)
+
+    h_params = create_ckks_params(SMALL_N, scaling_bits=28, num_levels=SMALL_HYBRID_LEVELS,
+                                  use_security_budget=False, num_special=2)
+    h_ctx = make_context(h_params)
+    rng = np.random.default_rng(10)
+    a, b = (rng.uniform(-1, 1, (BATCH, SMALL_N // 2)) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    sk = rlwe_mod.keygen(h_ctx, gen)
+    h_rlk = keys_mod.relin_key(h_ctx, sk, gen, alpha=ALPHA)
+    ha, hb = (ckks.encrypt(h_ctx, ckks.encode(v, h_params, device=dev), sk, gen) for v in (a, b))
+    h_prod = ckks.rescale(h_ctx, ckks.mult(h_ctx, ha, hb, h_rlk))
+    out = ckks.decode(ckks.decrypt(h_ctx, h_prod, sk), h_params)
+    torch.cuda.synchronize()
+    h_launches = dict(kernels.LAUNCHES)
+    err = float(np.abs(out - a * b).max())
+    check(err <= MAX_ERR_MULT, f"small-n alpha=2 mult decode error {err} above {MAX_ERR_MULT}")
+    check(h_launches["ext_prod_conv"] > 0, "K4 was not launched on the small-n alpha=2 step")
+    h_prod_c = ckks.rescale(h_ctx, ckks.mult(h_ctx, _rows_on_cpu(ha, REPLAY_ROWS),
+                                             _rows_on_cpu(hb, REPLAY_ROWS), _key_on_cpu(h_rlk)))
+    card = _rows_on_cpu(h_prod, REPLAY_ROWS)
+    check(torch.equal(h_prod_c.c0.data, card.c0.data) and torch.equal(h_prod_c.c1.data,
+                                                                      card.c1.data),
+          "small-n alpha=2: the card's product differs from the plain CPU path")
+    mult_ms = device_time(lambda: ckks.rescale(h_ctx, ckks.mult(h_ctx, ha, hb, h_rlk)), 1, 5)
+    print(f"[small] alpha=2 step, n={SMALL_N} L={SMALL_HYBRID_LEVELS}+2, batch {BATCH}: mult + "
+          f"relin + rescale max|err| vs a*b = {err:.3e}, {mult_ms * 1e3 / BATCH:.5f} ms per "
+          f"ciphertext (CUDA events); plain CPU replay of {REPLAY_ROWS} ciphertexts bitwise "
+          f"equal; launches {json.dumps(h_launches)}")
+    return {k: launches[k] + h_launches[k] for k in launches}
+
+
+def circuit_calls(ctx, params):
+    """The circuits of phase 7, each a function of (ciphertexts, relin key,
+    rotation keys)."""
+    return {
+        "matrix_vector_mul": lambda c, rlk, rks: la.matrix_vector_mul(
+            ctx, params, c["mat"], c["vec"], rks),
+        "sign": lambda c, rlk, rks: pe.sign(ctx, params, c["sign"], rlk, iterations=2),
+        "inverse": lambda c, rlk, rks: pe.inverse(ctx, params, c["inverse"], rlk, iterations=3),
+        "rotate_accumulate": lambda c, rlk, rks: ckks.rotate_accumulate(
+            ctx, list(zip(c["acc"], ACC_STEPS)), rks),
+    }
+
+
+def circuit_errors(decoded, inputs):
+    """Max error of each circuit's decoded slots against numpy, and whether
+    it is within its bound."""
+    mat, vec = inputs["mat"], inputs["vec"]
+    out = {
+        "matrix_vector_mul": (float(np.abs(decoded["matrix_vector_mul"][:, :MV_DIM].real
+                                           - vec[:, :MV_DIM] @ mat.T).max()), MAX_ERR_MV),
+        "sign": (float(np.abs(decoded["sign"].real - np.sign(inputs["sign"])).max()),
+                 MAX_ERR_SIGN),
+        "inverse": (float((np.abs(decoded["inverse"].real - 1 / inputs["inverse"])
+                           * inputs["inverse"]).max()), RTOL_INVERSE),
+        "rotate_accumulate": (float(np.abs(decoded["rotate_accumulate"] - sum(
+            np.roll(v, s, axis=-1) for v, s in zip(inputs["acc"], ACC_STEPS))).max()),
+            MAX_ERR_ACC),
+    }
+    return out
+
+
+def circuits_path(dev):
+    """Phase 7: the circuits on the hybrid configuration (12 + 2 limbs,
+    alpha=2, the full 128-bit budget at n=16384), batch 16, keys made on
+    the card: matrix_vector_mul (narrow, hoisted: 126 rotation keys), sign,
+    inverse and rotate_accumulate, between a reset and a read of the launch
+    counts; decode errors under the reference tests' bounds; 2 rows replayed
+    on the CPU through the plain versions (the device codec's plain version
+    for the encodes inside the circuits), bitwise. Returns (launches, K1/K2
+    launches by rows, and a function that prints each circuit's CUDA-event
+    time per ciphertext and a trace of it: main() calls it after the K1/K2
+    row sweep; run before the sweep, with the matrix product's trace of
+    ~40 000 kernels, the sweep's short traces lost most of a kernel's
+    records on an H100, twice)."""
+    params = create_ckks_params(N, scaling_bits=28, num_special=HYBRID_SPECIAL)
+    ctx = make_context(params)
+    slots, B = N // 2, CIRCUIT_BATCH
+    rng = np.random.default_rng(21)
+    vec = np.zeros((B, slots))
+    vec[:, :MV_DIM] = rng.uniform(-1, 1, (B, MV_DIM))
+    inputs = dict(
+        mat=rng.uniform(-1, 1, (MV_DIM, MV_DIM)), vec=vec,
+        sign=rng.uniform(0.6, 1, (B, slots)) * rng.choice([-1.0, 1.0], (B, slots)),
+        inverse=rng.uniform(0.6, 1.4, (B, slots)),
+        acc=[rng.uniform(-1, 1, (B, slots)) for _ in ACC_STEPS])
+    steps = sorted(set(la.mv_mul_requiring_steps(slots, MV_DIM)) | set(ACC_STEPS) - {0})
+    calls = circuit_calls(ctx, params)
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sk = rlwe_mod.keygen(ctx, gen)
+    rlk = keys_mod.relin_key(ctx, sk, gen, alpha=ALPHA)
+    rks = {s: keys_mod.rot_key(ctx, sk, s, gen, alpha=ALPHA) for s in steps}
+    t_keys = time.perf_counter() - t0
+    enc = lambda v: ckks.encrypt(ctx, ckks.encode(v, params, device=dev), sk, gen)  # noqa: E731
+    cts = dict(mat=inputs["mat"], vec=enc(vec), sign=enc(inputs["sign"]),
+               inverse=enc(inputs["inverse"]), acc=[enc(v) for v in inputs["acc"]])
+    outs = {name: fn(cts, rlk, rks) for name, fn in calls.items()}
+    decoded = {name: ckks.decode(ckks.decrypt(ctx, ct, sk), params) for name, ct in outs.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rows = {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS}
+    for name in ("ntt_fwd", "ntt_inv", "ext_prod_conv", "fft"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the circuits path")
+    errors = circuit_errors(decoded, inputs)
+    for name, (err, limit) in errors.items():
+        check(bool(np.isfinite(decoded[name]).all()), f"{name}: decoded values not finite")
+        check(err <= limit, f"{name}: decode error {err} above {limit}")
+    key_bytes = sum(k.data.numel() * 8 for k in rks.values())
+    print(f"[circuits] n={N} L={len(params.moduli)}+{HYBRID_SPECIAL} alpha={ALPHA} batch={B}: "
+          f"keygen + {len(rks)} rotation keys ({key_bytes / 1e9:.2f} GB as int64) "
+          f"{t_keys:.3f} s, keygen..decode {wall:.3f} s (host clock); max|err| and bound "
+          f"{json.dumps(errors)}; output limbs "
+          f"{json.dumps({k: v.level for k, v in outs.items()})}; launches {json.dumps(launches)}")
+    print(f"[circuits] K1/K2 launches by rows {{rows: launches}}: {json.dumps(rows)}")
+
+    R = CIRCUIT_REPLAY_ROWS
+    cts_c = dict(mat=inputs["mat"], vec=_rows_on_cpu(cts["vec"], R),
+                 sign=_rows_on_cpu(cts["sign"], R), inverse=_rows_on_cpu(cts["inverse"], R),
+                 acc=[_rows_on_cpu(c, R) for c in cts["acc"]])
+    rlk_c, rks_c = _key_on_cpu(rlk), {s: _key_on_cpu(k) for s, k in rks.items()}
+    old, config.use_device_codec = config.use_device_codec, True
+    t0 = time.perf_counter()
+    try:
+        for name, fn in calls.items():
+            got, card = fn(cts_c, rlk_c, rks_c), _rows_on_cpu(outs[name], R)
+            check(got.limb_ids == card.limb_ids and got.scaling_factor == card.scaling_factor
+                  and torch.equal(got.c0.data, card.c0.data)
+                  and torch.equal(got.c1.data, card.c1.data),
+                  f"{name}: the card's ciphertexts differ from the plain CPU path")
+    finally:
+        config.use_device_codec = old
+    print(f"[circuits] plain CPU replay of {R} of {B} ciphertexts (device codec's plain "
+          f"version for the encodes): bitwise equal ciphertexts, scales and limbs for all four "
+          f"circuits ({time.perf_counter() - t0:.1f} s)")
+    del rks_c, rlk_c
+
+    def timings():
+        metrics = {}
+        for name, fn in calls.items():
+            call = functools.partial(fn, cts, rlk, rks)
+            metrics[f"{name}_ms_per_ct"] = device_time(call, 0, 1) * 1e3 / B
+            print(f"[circuits] torch.profiler trace of one batch-{B} {name}: "
+                  f"{json.dumps(device_trace(call))}")
+        print(f"[circuits] times (CUDA events around one warm batch-{B} call, per ciphertext), "
+              f"{card_line()}: {json.dumps(metrics)}")
+
+    return launches, rows, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
     card = card_line()
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     print(f"[device] {card}")
-    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {name}, "
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}: {device_name}, "
           f"{torch.cuda.device_count()} device(s)")
 
     t0 = time.perf_counter()
@@ -609,27 +1009,41 @@ def main() -> int:
     ctx = make_context(params)
     hctx = make_context(create_ckks_params(N, scaling_bits=28, num_special=HYBRID_SPECIAL))
     records = kernels_vs_plain(ctx, hctx, dev)
+    small_records = small_kernels(dev)
     torch.cuda.empty_cache()
     main_launches, main_rows, main_steps = main_path(params, ctx, dev)
     torch.cuda.empty_cache()
     hybrid_launches, hybrid_rows, hybrid_steps = hybrid_path(dev)
     torch.cuda.empty_cache()
-    sweep = ntt_row_sweep(hctx, dev, (main_rows, hybrid_rows))
-    weighted = launch_weighted(sweep, {"main": main_rows, "hybrid": hybrid_rows},
-                               {"main": main_steps, "hybrid": hybrid_steps})
+    small_launches = small_path(dev)
+    torch.cuda.empty_cache()
+    circuit_launches, circuit_rows, circuit_timings = circuits_path(dev)
+    path_rows = {"main": main_rows, "hybrid": hybrid_rows, "circuits": circuit_rows}
+    sweep = ntt_row_sweep(hctx, dev, tuple(path_rows.values()))
+    weighted = launch_weighted(sweep, path_rows, {"main": main_steps, "hybrid": hybrid_steps})
+    circuit_timings()
+    del circuit_timings
+    torch.cuda.empty_cache()
+    by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches}
     for k, rec in records.items():
-        rec["launches"] = main_launches[k] + hybrid_launches[k]
-        rec["launches_by_path"] = {"main": main_launches[k], "hybrid": hybrid_launches[k]}
+        rec["launches_by_path"] = {tag: counts[k] for tag, counts in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
         check(rec["launches"] > 0, f"kernel {k} was launched on no path")
     for k in NTT_KERNELS:
         records[k]["by_rows"] = [
-            dict(rows=rows, launches_main=main_rows[k].get(rows, 0),
-                 launches_hybrid=hybrid_rows[k].get(rows, 0), **rec)
+            dict(rows=rows, **{f"launches_{tag}": r[k].get(rows, 0)
+                               for tag, r in path_rows.items()}, **rec)
             for rows, rec in sweep[k].items()]
         records[k]["launch_weighted_kernel_ms"] = weighted[k]
+    for name, rec in small_records.items():
+        kind = name.rsplit("_small", 1)[0]
+        rec["launches"] = small_launches[kind]
+        rec["launches_by_path"] = {"small": small_launches[kind]}
+        check(rec["launches"] > 0, f"kernel {name} was not launched on the small-n path")
+    records.update(small_records)
     print(json.dumps({"kernels": [dict(name=k, **rec) for k, rec in records.items()]}))
     print(card_line())
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

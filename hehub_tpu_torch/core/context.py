@@ -1,5 +1,6 @@
 """Parameter objects and the immutable precomputed-table Context (port of
-hehub_tpu/core/context.py, CKKS part).
+hehub_tpu/core/context.py, CKKS part: create_ckks_params,
+create_ckks_params_from_bit_lengths, Context).
 
 Tables are computed once, on the host, in numpy uint32 — bitwise equal to
 the JAX package's. Ops take them as device tensors through
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -125,6 +126,63 @@ def create_ckks_params(
         moduli=tuple(primes[num_special:]),
         special_mod=tuple(primes[:num_special]) if num_special != 1 else primes[0],
         initial_scaling_factor=float(2.0**scaling_bits),
+    )
+
+
+def create_ckks_params_from_bit_lengths(
+    dimension: int,
+    moduli_bits: Sequence[int],
+    special_mod_bits: Union[int, Sequence[int]] = 30,
+    initial_scaling_factor: Optional[float] = None,
+    use_security_budget: bool = True,
+) -> CkksParams:
+    """CKKS parameters from the bit width of every chain prime and of the
+    special prime(s), each in [23, 30] (uint32 limbs with lazy headroom);
+    the scaling factor defaults to 2^(last chain width). Picks the primes
+    of the reference: the specials first, then the chain, each width's
+    primes from one downward scan (gen_ntt_primes)."""
+    if not moduli_bits:
+        raise ValueError("need at least one chain modulus")
+    specials = (
+        (special_mod_bits,) if isinstance(special_mod_bits, int) else tuple(special_mod_bits)
+    )
+    for w in (*moduli_bits, *specials):
+        if not 23 <= w <= 30:
+            raise ValueError(
+                f"per-prime widths must be in [23, 30] bits (got {w}): uint32 limbs need "
+                "q < 2^30 for lazy arithmetic and q >= 2^22 for the digit-plane "
+                "decompositions; for wider effective scales use create_ckks_params with a "
+                "multi-limb scaling factor (scaling_bits up to 55)"
+            )
+    if use_security_budget:
+        budget = STD_LOGQP_BUDGET.get(dimension)
+        if budget is None:
+            raise ValueError(
+                f"no standard security budget for dimension {dimension}; "
+                "pass use_security_budget=False to opt out explicitly"
+            )
+        total = sum(moduli_bits) + sum(specials)
+        if total > budget:
+            raise ValueError(
+                f"sum of prime widths ({total} bits) exceeds the 128-bit-security budget "
+                f"({budget} bits) for dimension {dimension}"
+            )
+    # same-width primes come from one scan, so all are distinct; different
+    # widths lie in disjoint ranges [2^(w-1), 2^w)
+    order = [*specials, *moduli_bits]
+    need: Dict[int, int] = {}
+    for w in order:
+        need[w] = need.get(w, 0) + 1
+    pools = {w: list(hm.gen_ntt_primes(w, c, dimension)) for w, c in need.items()}
+    picked = [pools[w].pop(0) for w in order]
+    special = picked[: len(specials)]
+    scale = (float(initial_scaling_factor) if initial_scaling_factor is not None
+             else float(2.0 ** moduli_bits[-1]))
+    return CkksParams(
+        dimension=dimension,
+        moduli=tuple(picked[len(specials):]),
+        special_mod=tuple(special) if len(special) != 1 else special[0],
+        initial_scaling_factor=scale,
     )
 
 

@@ -45,13 +45,17 @@ def _cycle_index_tensor(n: int, step: int, device: str) -> torch.Tensor:
     return torch.from_numpy(cycle_indices(n, step).astype(np.int64)).to(device)
 
 
+def cycle_values(data: torch.Tensor, step: int) -> torch.Tensor:
+    """The rotation's gather on the last axis of NTT values [..., n]."""
+    n = data.shape[-1]
+    return data.index_select(-1, _cycle_index_tensor(n, step % n, str(data.device)))
+
+
 def cycle(poly: RnsPoly, step: int) -> RnsPoly:
     """Slot rotation: an O(n) gather of NTT values."""
     if poly.form != NTT:
         raise ValueError("cycle expects NTT (value) form")
-    n = poly.dimension
-    idx = _cycle_index_tensor(n, step % n, str(poly.data.device))
-    return poly.with_data(poly.data.index_select(-1, idx))
+    return poly.with_data(cycle_values(poly.data, step))
 
 
 def involution(poly: RnsPoly) -> RnsPoly:

@@ -141,6 +141,13 @@ def drop_last_limb(a: RnsPoly) -> RnsPoly:
     return RnsPoly(a.data[..., :-1, :], a.form, a.limb_ids[:-1])
 
 
+def concat_limbs(a: RnsPoly, b: RnsPoly) -> RnsPoly:
+    """a's limbs followed by b's (the same form and batch shape)."""
+    if a.form != b.form:
+        raise ValueError("form mismatch")
+    return RnsPoly(torch.cat([a.data, b.data], dim=-2), a.form, a.limb_ids + b.limb_ids)
+
+
 def zeros(ctx, limb_ids: Tuple[int, ...], device, batch_shape=(), form=COEFF) -> RnsPoly:
     n = ctx.params.dimension
     data = torch.zeros((*batch_shape, len(limb_ids), n), dtype=torch.int64, device=device)

@@ -50,13 +50,18 @@
 // shared memory beside the exchange buffer, at e T + tid (no bank
 // conflicts), which leaves each thread under 64 registers with no spills:
 // 32 values a thread with register accumulators (512 threads, 16 warps,
-// spills) ran slower than the first design.
+// spills) ran slower than the first design. Rows of n <= 512 are too short
+// for that block program (16 to 32 threads a row): there a block of 256
+// threads takes 2048 / n (row, limb) pairs, runs each digit's stages in
+// shared memory and keeps the accumulators in registers
+// (ext_prod_small_kernel).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "launch.cuh"
 #include "ntt.cuh"
+#include "smallrow.cuh"
 
 namespace {
 
@@ -165,6 +170,92 @@ __global__ void __launch_bounds__(1 << (LOGN - EB)) ext_prod_kernel(const ExtPro
   }
 }
 
+// K3 and K4 on rows of n = 2^LOGN <= 512 (smallrow.cuh): the pairs
+// (r, j) in order p = r L_ext + j, the order of the output rows, block b
+// taking the pairs [b P, (b + 1) P), P = 2048 / n, so its output rows are
+// contiguous. For each digit i the block loads the digit row of each of
+// its pairs into shared memory, runs the forward stages under each pair's
+// limb j, and each thread multiplies its kSmallElems values with the key
+// rows key[i, 0, j] and key[i, 1, j], accumulating in registers in digit
+// order as the large-row kernel does. The last block masks the pairs past
+// R L_ext.
+template <int LOGN>
+__global__ void __launch_bounds__(hh::kSmallThreads) ext_prod_small_kernel(const ExtProdArgs a) {
+  __shared__ uint32_t x[hh::kSmallValues];
+  constexpr int n = 1 << LOGN;
+  const int tid = threadIdx.x;
+  const long long first = static_cast<long long>(blockIdx.x) * hh::kSmallValues;
+  const long long left = static_cast<long long>(a.R) * a.L_ext * n - first;
+  const unsigned p0 = static_cast<unsigned>(first >> LOGN);
+  // value k of the thread: element e of pair p (row r, limb j)
+  const uint32_t* dig[hh::kSmallElems];
+  const uint32_t* key[hh::kSmallElems];
+  uint32_t q[hh::kSmallElems], two_q[hh::kSmallElems], neg_qinv[hh::kSmallElems];
+#pragma unroll
+  for (int k = 0; k < hh::kSmallElems; ++k) {
+    const int at = k * hh::kSmallThreads + tid;
+    const unsigned p = p0 + (at >> LOGN);
+    const int e = at & (n - 1);
+    const unsigned r = p / a.L_ext;
+    const int j = static_cast<int>(p - r * a.L_ext);
+    dig[k] = a.digits + r * a.dig_row_stride + j * a.dig_limb_stride + e;
+    key[k] = a.key + j * a.key_limb_stride + e;
+    q[k] = a.q[j];
+    two_q[k] = a.two_q[j];
+    neg_qinv[k] = a.neg_qinv[j];
+  }
+  hh::SmallLimbs c;
+#pragma unroll
+  for (int k = 0; k < hh::kSmallPairs; ++k) {
+    const unsigned p = p0 + hh::small_row<LOGN>(tid, k);
+    const int j = static_cast<int>(p % a.L_ext);
+    c.tw[k] = a.tw + static_cast<long long>(j) * n;
+    c.tw_sh[k] = a.tw_sh + static_cast<long long>(j) * n;
+    c.q[k] = a.q[j];
+    c.two_q[k] = a.two_q[j];
+  }
+  uint32_t acc0[hh::kSmallElems], acc1[hh::kSmallElems];
+  for (int i = 0; i < a.D; ++i) {
+    // each thread writes the words it read after the previous digit's
+    // stages: the barrier that ended them keeps every other word's reads
+    // before these writes
+#pragma unroll
+    for (int k = 0; k < hh::kSmallElems; ++k) {
+      const int at = k * hh::kSmallThreads + tid;
+      if (at < left) x[at] = __ldg(dig[k] + i * a.dig_digit_stride);
+    }
+    __syncthreads();
+    hh::fwd_stages_small<LOGN>(x, tid, c);
+#pragma unroll
+    for (int k = 0; k < hh::kSmallElems; ++k) {
+      const uint32_t v = x[k * hh::kSmallThreads + tid];
+      const uint32_t* kr = key[k] + i * a.key_row_stride;
+      const uint32_t p0v = hh::mont_mul_lazy(v, __ldg(kr), q[k], neg_qinv[k]);
+      const uint32_t p1v = hh::mont_mul_lazy(v, __ldg(kr + a.key_half_stride), q[k], neg_qinv[k]);
+      acc0[k] = i == 0 ? p0v : hh::add_lazy(acc0[k], p0v, two_q[k]);
+      acc1[k] = i == 0 ? p1v : hh::add_lazy(acc1[k], p1v, two_q[k]);
+    }
+  }
+  uint32_t* o0 = a.out + first;
+  uint32_t* o1 = o0 + static_cast<long long>(a.R) * a.L_ext * n;
+#pragma unroll
+  for (int k = 0; k < hh::kSmallElems; ++k) {
+    const int at = k * hh::kSmallThreads + tid;
+    if (at < left) {
+      o0[at] = acc0[k];
+      o1[at] = acc1[k];
+    }
+  }
+}
+
+template <int LOGN>
+int launch_small(const ExtProdArgs& a, cudaStream_t stream) {
+  constexpr long long per_block = hh::kSmallValues >> LOGN;
+  const long long blocks = (static_cast<long long>(a.R) * a.L_ext + per_block - 1) / per_block;
+  ext_prod_small_kernel<LOGN><<<static_cast<unsigned>(blocks), hh::kSmallThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Sets the kernel's dynamic shared memory limit once per device (it may
 // exceed the 48 KB default) and launches it.
 template <int LOGN, int EB, Acc ACC>
@@ -180,7 +271,8 @@ int launch(const ExtProdArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16 values a thread and the accumulators in shared memory up to
+// Several rows a block below n = 1024 (smallrow.cuh); 16 values a thread
+// and the accumulators in shared memory up to
 // n = 16384 (1024 threads there); at n = 32768 a block cannot hold both
 // the row and the accumulators, so 128 values a thread (256 threads, up to
 // 255 registers each: fewer values spilled) and the accumulators in the
@@ -188,6 +280,20 @@ int launch(const ExtProdArgs& a, cudaStream_t stream) {
 int dispatch(const ExtProdArgs& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.logn) {
+    case 3:
+      return launch_small<3>(a, s);
+    case 4:
+      return launch_small<4>(a, s);
+    case 5:
+      return launch_small<5>(a, s);
+    case 6:
+      return launch_small<6>(a, s);
+    case 7:
+      return launch_small<7>(a, s);
+    case 8:
+      return launch_small<8>(a, s);
+    case 9:
+      return launch_small<9>(a, s);
     case 10:
       return launch<10, 4, kAccShared>(a, s);
     case 11:
@@ -215,7 +321,7 @@ const char* hh_error_string(int code) {
 
 // K3. digits: [R, l, n] strict; key: element (i, half, j, e) at
 // i*krs + half*khs + j*kls + e; tw/tw_sh: [L_ext, n]; q/two_q/neg_qinv:
-// [L_ext]; out: [2, R, L_ext, n]. n in [1024, 32768]. Returns
+// [L_ext]; out: [2, R, L_ext, n]. n in [8, 32768]. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for an n
 // out of range.
 int hh_ext_prod(const uint32_t* digits, const uint32_t* key, long long krs, long long khs,

@@ -46,9 +46,10 @@
 // to shared memory. At [64, 8192] that is 128 blocks of 512 threads, 72 KB
 // of shared memory each; every m in [512, 16384] takes the same code
 // (144 KB a block at 16384). The shared-memory limit is set once per
-// device and size, not per call. The kernel is CUDA C++ rather than Triton:
-// it needs clusters, distributed shared memory and register-resident
-// butterflies.
+// device and size, not per call. Rows of m <= 256 run on fft_small_kernel
+// instead, several rows a block in shared memory, no cluster. The kernel
+// is CUDA C++ rather than Triton: it needs clusters, distributed shared
+// memory and register-resident butterflies.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -227,6 +228,73 @@ __global__ void __cluster_dims__(1 << kClusterLog, 1, 1)
   cluster.sync();  // the other blocks may still read this block's part
 }
 
+// Rows of m = 2^LOGM <= 256 (a half row of m = 256 would be 16 threads):
+// block b holds the rows [b R, (b + 1) R), R = 1024 / m, in shared memory
+// (16 KB for both planes), and its 256 threads run every stage there, a
+// barrier after each: thread tid takes butterfly j = tid mod m/2 of the
+// block rows tid / (m/2) + k 512 / m, k < 2, with the same twiddle. The
+// last block masks the rows past `rows`. The butterflies and their
+// operands are fft_plain's, as above.
+constexpr int kSmallFftLog = 10;
+constexpr int kSmallFftValues = 1 << kSmallFftLog;
+constexpr int kSmallFftThreads = 256;
+constexpr int kSmallFftPairs = kSmallFftValues / 2 / kSmallFftThreads;
+
+template <int LOGM>
+__global__ void __launch_bounds__(kSmallFftThreads)
+    fft_small_kernel(const double* __restrict__ in_re, const double* __restrict__ in_im,
+                     double* __restrict__ out_re, double* __restrict__ out_im,
+                     const double* __restrict__ tw_re, const double* __restrict__ tw_im,
+                     long long rows) {
+  __shared__ double sre[kSmallFftValues], sim[kSmallFftValues];
+  constexpr int m = 1 << LOGM;
+  const int tid = threadIdx.x;
+  const long long first = static_cast<long long>(blockIdx.x) * kSmallFftValues;
+  const long long left = rows * m - first;  // values of this block that exist
+#pragma unroll
+  for (int k = 0; k < kSmallFftValues / kSmallFftThreads; ++k) {
+    const int at = k * kSmallFftThreads + tid;
+    if (at < left) {
+      sre[at] = in_re[first + at];
+      sim[at] = in_im[first + at];
+    }
+  }
+  __syncthreads();
+  const int j = tid & (m / 2 - 1);
+#pragma unroll
+  for (int s = 0; s < LOGM; ++s) {
+    const int t = 1 << s;
+    const int jl = j & (t - 1);
+    const int off = 2 * t * (j >> s) + jl;
+    const double wr = __ldg(tw_re + t - 1 + jl), wi = __ldg(tw_im + t - 1 + jl);
+#pragma unroll
+    for (int k = 0; k < kSmallFftPairs; ++k) {
+      const int lo = (((tid >> (LOGM - 1)) + k * (kSmallFftThreads >> (LOGM - 1))) << LOGM) + off;
+      butterfly(sre[lo], sim[lo], sre[lo + t], sim[lo + t], wr, wi);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < kSmallFftValues / kSmallFftThreads; ++k) {
+    const int at = k * kSmallFftThreads + tid;
+    if (at < left) {
+      out_re[first + at] = sre[at];
+      out_im[first + at] = sim[at];
+    }
+  }
+}
+
+template <int LOGM>
+cudaError_t launch_small(const double* in_re, const double* in_im, double* out_re,
+                         double* out_im, const double* tw_re, const double* tw_im, long long rows,
+                         cudaStream_t s) {
+  constexpr long long per_block = kSmallFftValues >> LOGM;
+  const long long blocks = (rows + per_block - 1) / per_block;
+  fft_small_kernel<LOGM><<<static_cast<unsigned>(blocks), kSmallFftThreads, 0, s>>>(
+      in_re, in_im, out_re, out_im, tw_re, tw_im, rows);
+  return cudaGetLastError();
+}
+
 template <int LOGM>
 cudaError_t launch(const double* in_re, const double* in_im, double* out_re, double* out_im,
                    const double* tw_re, const double* tw_im, long long rows, cudaStream_t s) {
@@ -250,13 +318,27 @@ const char* hh_error_string(int code) {
 
 // in_re/in_im: [rows, 2^logm] bit-reversed input; out_re/out_im: [rows,
 // 2^logm] natural-order DFT (not aliasing the input); tw_re/tw_im:
-// [2^logm - 1] compact per-stage twiddles. logm in [9, 14]. Returns
+// [2^logm - 1] compact per-stage twiddles. logm in [2, 14]. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a logm
 // out of range.
 int hh_fft(const double* in_re, const double* in_im, double* out_re, double* out_im,
            const double* tw_re, const double* tw_im, long long rows, int logm, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (logm) {
+    case 2:
+      return launch_small<2>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 3:
+      return launch_small<3>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 4:
+      return launch_small<4>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 5:
+      return launch_small<5>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 6:
+      return launch_small<6>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 7:
+      return launch_small<7>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 8:
+      return launch_small<8>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
     case 9:
       return launch<9>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
     case 10:

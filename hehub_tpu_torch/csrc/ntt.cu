@@ -30,6 +30,11 @@
 // [L, n] Context tables (tw_fwd/tw_inv and their Shoup companions), which
 // stay in L2.
 //
+// Rows of n <= 512 are shorter than the chains' 16 values a thread on two
+// blocks allow (a half row of n = 512 is 16 threads): there a block holds
+// 2048 / n whole rows and runs their stages in shared memory, 256 threads,
+// no cluster (ntt_small_kernel, smallrow.cuh).
+//
 // The row's limb is row % L: data is a contiguous [..., L, n] tensor.
 // Output is bitwise equal to the plain chains ntt_fwd / ntt_inv of
 // hehub_tpu_torch/ops/ntt.py (same butterflies, same operands).
@@ -40,6 +45,7 @@
 
 #include "launch.cuh"
 #include "ntt.cuh"
+#include "smallrow.cuh"
 
 namespace {
 
@@ -160,6 +166,63 @@ __global__ void __cluster_dims__(2, 1, 1)
   cluster.sync();
 }
 
+// K1 and K2 on rows of n = 2^LOGN <= 512 (smallrow.cuh): block b holds the
+// rows [b R, (b + 1) R), R = 2048 / n, contiguous in memory, so its loads
+// and stores are coalesced words; the last block masks the rows past `rows`.
+// Row r takes limb r % L; each thread's butterflies take the constants of
+// their rows' limbs.
+template <bool INV, int LOGN>
+__global__ void __launch_bounds__(hh::kSmallThreads)
+    ntt_small_kernel(const NttArgs a, long long rows) {
+  __shared__ uint32_t x[hh::kSmallValues];
+  constexpr int n = 1 << LOGN;
+  const int tid = threadIdx.x;
+  const long long first = static_cast<long long>(blockIdx.x) * hh::kSmallValues;
+  const long long left = rows * n - first;  // values of this block that exist
+#pragma unroll
+  for (int k = 0; k < hh::kSmallElems; ++k) {
+    const int at = k * hh::kSmallThreads + tid;
+    if (at < left) x[at] = __ldg(a.in + first + at);
+  }
+  hh::SmallLimbs c;
+  hh::SmallLast last;
+#pragma unroll
+  for (int k = 0; k < hh::kSmallPairs; ++k) {
+    const unsigned r = static_cast<unsigned>(first >> LOGN) + hh::small_row<LOGN>(tid, k);
+    const int limb = static_cast<int>(r % a.L);  // 32-bit: no division call
+    c.tw[k] = a.tw + static_cast<long long>(limb) * n;
+    c.tw_sh[k] = a.tw_sh + static_cast<long long>(limb) * n;
+    c.q[k] = a.q[limb];
+    c.two_q[k] = a.two_q[limb];
+    if constexpr (INV) {
+      last.w[k] = a.w_last[limb];
+      last.w_sh[k] = a.w_last_sh[limb];
+      last.n_inv[k] = a.n_inv[limb];
+      last.n_inv_sh[k] = a.n_inv_sh[limb];
+    }
+  }
+  __syncthreads();
+  if constexpr (INV) {
+    hh::inv_stages_small<LOGN>(x, tid, c, last);
+  } else {
+    hh::fwd_stages_small<LOGN>(x, tid, c);
+  }
+#pragma unroll
+  for (int k = 0; k < hh::kSmallElems; ++k) {
+    const int at = k * hh::kSmallThreads + tid;
+    if (at < left) a.out[first + at] = x[at];
+  }
+}
+
+template <bool INV, int LOGN>
+int launch_small(const NttArgs& a, long long rows, cudaStream_t stream) {
+  constexpr long long per_block = hh::kSmallValues >> LOGN;
+  const long long blocks = (rows + per_block - 1) / per_block;
+  ntt_small_kernel<INV, LOGN><<<static_cast<unsigned>(blocks), hh::kSmallThreads, 0, stream>>>(
+      a, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Sets the kernel's dynamic shared memory limit once per device (it may
 // exceed the 48 KB default) and launches it on 2 `rows` blocks.
 template <bool INV, int LOGN>
@@ -178,6 +241,20 @@ template <bool INV>
 int dispatch(const NttArgs& a, long long rows, int logn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (logn) {
+    case 3:
+      return launch_small<INV, 3>(a, rows, s);
+    case 4:
+      return launch_small<INV, 4>(a, rows, s);
+    case 5:
+      return launch_small<INV, 5>(a, rows, s);
+    case 6:
+      return launch_small<INV, 6>(a, rows, s);
+    case 7:
+      return launch_small<INV, 7>(a, rows, s);
+    case 8:
+      return launch_small<INV, 8>(a, rows, s);
+    case 9:
+      return launch_small<INV, 9>(a, rows, s);
     case 10:
       return launch<INV, 10>(a, rows, s);
     case 11:
@@ -204,7 +281,7 @@ const char* hh_error_string(int code) {
 }
 
 // K1. in/out: [rows, n] (row r under limb r % L), 16-byte aligned;
-// tw/tw_sh: [L, n]; q/two_q: [L]; n = 2^logn in [1024, 32768]. Returns
+// tw/tw_sh: [L, n]; q/two_q: [L]; n = 2^logn in [8, 32768]. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for an n
 // out of range.
 int hh_ntt_fwd(const uint32_t* in, uint32_t* out, const uint32_t* tw, const uint32_t* tw_sh,

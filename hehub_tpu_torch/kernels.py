@@ -47,7 +47,11 @@ LAUNCHES: Dict[str, int] = {
 # the same launches by their rows ({rows: launches}; R for the external products)
 LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
 
-MIN_N, MAX_N = 1024, 32768
+# every ring the package takes (n >= 8) up to the largest with a standard
+# 128-bit budget; below n = 1024 the sources launch their instantiations
+# that hold several rows a block (csrc/smallrow.cuh, fft.cu's
+# fft_small_kernel)
+MIN_N, MAX_N = 8, 32768
 # the FFT's length m = n/2 of the codec's ring dimension n
 MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_N // 2
 

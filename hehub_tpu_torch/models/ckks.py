@@ -15,7 +15,10 @@ residue work on the device.
 
 Ciphertext operations take the Context and run where the ciphertext's
 tensors lie: on a CUDA device through the NTT, INTT and external-product
-kernels, on the CPU through their plain versions.
+kernels, on the CPU through their plain versions. Beside the main path:
+the scalar codec, rescale_auto / rescale_to (flexible scales),
+rotate_accumulate (one special-prime division for a sum of rotations) and
+hoisted_rotations (one digit decomposition for many rotations).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -281,6 +284,19 @@ def encode(data, params: CkksParams, scaling_factor: Optional[float] = None,
     return CkksPt(poly, float(scale))
 
 
+def encode_scalar(value, params: CkksParams, scaling_factor: Optional[float] = None,
+                  level: int = 0, *, device="cuda") -> CkksPt:
+    """One number replicated into every slot; decode_scalar averages the
+    slots back."""
+    return encode(np.full(params.dimension // 2, complex(value)), params, scaling_factor, level,
+                  device=device)
+
+
+def decode_scalar(pt: CkksPt, params: CkksParams, limbs: Optional[int] = None) -> complex:
+    """The mean of all slots: the inverse of encode_scalar."""
+    return complex(np.mean(decode(pt, params, limbs=limbs), axis=-1))
+
+
 def decode_limb_count(scale: float, limbs: Tuple[int, ...], moduli,
                       max_magnitude: float = 2.0**8) -> int:
     """Smallest K with ∏_{j<K} q_j above 2·scale·max|z| with 2^12 slack;
@@ -426,13 +442,19 @@ def mult_low_level(ctx, ct1: CkksCt, ct2: CkksCt) -> CkksQuadCt:
                       ct1.scaling_factor * ct2.scaling_factor)
 
 
-def _key_switch(ctx, poly: RnsPoly, ksk: rgsw_mod.RgswCt):
-    """ext_prod under the key restricted to the poly's level, then the
-    special-prime division(s)."""
-    d0, d1 = rgsw_mod.ext_prod(ctx, poly, ksk.at_level(poly.limb_count, ctx.num_special))
+def _div_special(ctx, d0: RnsPoly, d1: RnsPoly):
+    """Both halves from the extended limbs back to the ciphertext limbs:
+    the special-prime division(s), with rounding."""
     for _ in range(ctx.num_special):
         d0, d1 = basecnv.div_last_rounded_pair(ctx, d0, d1)
     return d0, d1
+
+
+def _key_switch(ctx, poly: RnsPoly, ksk: rgsw_mod.RgswCt):
+    """ext_prod under the key restricted to the poly's level, then the
+    special-prime division(s)."""
+    return _div_special(ctx, *rgsw_mod.ext_prod(ctx, poly, ksk.at_level(poly.limb_count,
+                                                                         ctx.num_special)))
 
 
 def relinearize(ctx, quad: CkksQuadCt, rlk: rgsw_mod.RgswCt) -> CkksCt:
@@ -456,6 +478,40 @@ def rescale(ctx, ct: CkksCt, dropping_primes: int = 1) -> CkksCt:
     return CkksCt(c0, c1, scale)
 
 
+def rescale_auto(ctx, ct: CkksCt, min_scale: Optional[float] = None) -> CkksCt:
+    """Drop as many trailing primes as keep the scaling factor at least
+    `min_scale` (default: the initial scaling factor); with limbs that do
+    not divide the scale it drifts within [min_scale, min_scale·q)."""
+    if min_scale is None:
+        min_scale = ctx.params.initial_scaling_factor
+    scale = ct.scaling_factor
+    drops = 0
+    level = ct.c0.limb_count
+    while drops < level - 1:
+        q_last = ctx.mod_list[ct.c0.limb_ids[level - 1 - drops]]
+        if scale / q_last < min_scale:
+            break
+        scale /= q_last
+        drops += 1
+    return rescale(ctx, ct, drops) if drops else ct
+
+
+def rescale_to(ctx, ct: CkksCt, target: float) -> CkksCt:
+    """Drop the number of trailing primes that brings the scaling factor
+    closest to `target` in log distance."""
+    level = ct.c0.limb_count
+    best_k, best_d = 0, abs(math.log2(ct.scaling_factor / target))
+    cur = ct.scaling_factor
+    for k in range(1, level):
+        cur /= ctx.mod_list[ct.c0.limb_ids[level - k]]
+        d = abs(math.log2(cur / target))
+        if d < best_d:
+            best_k, best_d = k, d
+        elif cur < target:
+            break
+    return rescale(ctx, ct, best_k) if best_k else ct
+
+
 def mod_drop(ctx, ct: CkksCt, count: int = 1) -> CkksCt:
     """Drop limbs WITHOUT dividing (level alignment)."""
     return CkksCt(
@@ -477,3 +533,58 @@ def rotate(ctx, ct: CkksCt, rk: rgsw_mod.RgswCt, step: int) -> CkksCt:
     r0, r1 = galois.cycle(ct.c0, step), galois.cycle(ct.c1, step)
     d0, d1 = _key_switch(ctx, r1, rk)
     return CkksCt(rns.add(ctx, d0, r0), d1, ct.scaling_factor)
+
+
+def rotate_accumulate(ctx, terms: Sequence[Tuple[CkksCt, int]],
+                      rot_keys: Dict[int, rgsw_mod.RgswCt]) -> CkksCt:
+    """Σ_g rotate(ct_g, step_g) with one special-prime division: every
+    nonzero-step term is key-switched into the extended basis, the sum is
+    divided once, and the step-0 terms are added after. The terms share
+    limbs and scaling factor."""
+    if not terms:
+        raise ValueError("rotate_accumulate needs at least one term")
+    level = terms[0][0].c0.limb_count
+    scale = terms[0][0].scaling_factor
+    ext0 = ext1 = None  # accumulated key-switch halves, extended basis
+    base0 = base1 = None  # step-0 terms and rotated c0 parts, ciphertext limbs
+    for ct, step in terms:
+        if abs(ct.scaling_factor - scale) > 1e-6 * scale:
+            raise ValueError("rotate_accumulate terms must share the scale")
+        if step % ct.c1.dimension == 0:
+            base0 = ct.c0 if base0 is None else rns.add(ctx, base0, ct.c0)
+            base1 = ct.c1 if base1 is None else rns.add(ctx, base1, ct.c1)
+            continue
+        r0, r1 = galois.cycle(ct.c0, step), galois.cycle(ct.c1, step)
+        d = rgsw_mod.ext_prod(ctx, r1, rot_keys[step].at_level(level, ctx.num_special))
+        ext0 = d.c0 if ext0 is None else rns.add(ctx, ext0, d.c0)
+        ext1 = d.c1 if ext1 is None else rns.add(ctx, ext1, d.c1)
+        base0 = r0 if base0 is None else rns.add(ctx, base0, r0)
+    if ext0 is None:
+        return CkksCt(base0, base1, scale)
+    ext0, ext1 = _div_special(ctx, ext0, ext1)
+    c0 = ext0 if base0 is None else rns.add(ctx, ext0, base0)
+    c1 = ext1 if base1 is None else rns.add(ctx, ext1, base1)
+    return CkksCt(c0, c1, scale)
+
+
+def hoisted_rotations(ctx, ct: CkksCt, rot_keys: Dict[int, rgsw_mod.RgswCt],
+                      steps: Sequence[int]) -> Dict[int, CkksCt]:
+    """Rotations of one ciphertext by each of `steps`, sharing one key-switch
+    digit decomposition (ks_digits: on the card the digit NTTs are one K1
+    launch on [..., D, L_ext, n]). A rotation acts on NTT values as a
+    gather, so the gathered digits are a digit vector of cycle(c1); each
+    step then takes the gather, the Montgomery contraction against its key
+    (ks_contract, plain PyTorch on either device) and the special-prime
+    division. Not bitwise equal to rotate(): the gathered digits are other
+    residue representatives, with the same noise."""
+    out: Dict[int, CkksCt] = {}
+    steps = list(steps)
+    if not steps:
+        return out
+    level = ct.c1.limb_count
+    digits = rgsw_mod.ks_digits(ctx, ct.c1, rot_keys[steps[0]].at_level(level, ctx.num_special))
+    for st in steps:
+        k = rot_keys[st].at_level(level, ctx.num_special)
+        d0, d1 = _div_special(ctx, *rgsw_mod.ks_contract(ctx, galois.cycle_values(digits, st), k))
+        out[st] = CkksCt(rns.add(ctx, d0, galois.cycle(ct.c0, st)), d1, ct.scaling_factor)
+    return out

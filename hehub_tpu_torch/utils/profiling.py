@@ -101,17 +101,23 @@ def kernel_time(fn: Callable[[], object], ours: bool, warmup: int = 2, iters: in
     (a library call's). Each kernel name adds its mean traced interval
     times its launches per call (its traced count over `iters`, rounded),
     so that a record the profiler drops (it loses one now and then) biases
-    neither side of a comparison."""
-    by_name: Dict[str, List[float]] = collections.defaultdict(list)
-    for name, us in _kernel_spans(fn, ours, warmup, iters):
-        by_name[name].append(us)
-    total = 0.0
-    for name, durations in by_name.items():
-        per_call = round(len(durations) / iters)
-        if per_call < 1 or len(durations) > per_call * iters:
-            raise RuntimeError(f"{len(durations)} launches of {name} traced for {iters} calls")
-        total += sum(durations) / len(durations) * per_call
-    return total / 1e6
+    neither side of a comparison. A trace that lost more than half of a
+    kernel's records, or holds more than whole calls' worth, is taken
+    again, three times in all; then this raises."""
+    for attempt in range(3):
+        by_name: Dict[str, List[float]] = collections.defaultdict(list)
+        for name, us in _kernel_spans(fn, ours, warmup if attempt == 0 else 0, iters):
+            by_name[name].append(us)
+        total, fault = 0.0, None
+        for name, durations in by_name.items():
+            per_call = round(len(durations) / iters)
+            if per_call < 1 or len(durations) > per_call * iters:
+                fault = f"{len(durations)} launches of {name} traced for {iters} calls"
+                break
+            total += sum(durations) / len(durations) * per_call
+        if fault is None:
+            return total / 1e6
+    raise RuntimeError(f"{fault} in each of 3 traces")
 
 
 def _activity(name: str) -> str:

@@ -1,14 +1,16 @@
 """The CKKS device codec of hehub_tpu_torch against numpy and hehub_tpu:
 
 (a) the FP64 FFT's plain stage chain against numpy complex128, K5's
-    schedule applied with the plain butterfly, and the balanced digit
-    split, on their own;
+    schedules (rows split over a cluster; short rows several to a block)
+    applied with the plain butterfly, and the balanced digit split, on
+    their own;
 (b) basecnv.decompose_balanced bitwise against hehub_tpu's;
 (c) the device codec, forced on the CPU (config.use_device_codec = True),
     against hehub_tpu's float64 host codec (the reference's own df64 codec
     on XLA:CPU is only float32-accurate, so the FFT is held to numpy);
-(d) on the card: the kernel K5 bitwise against the plain chain, and the
-    device codec against the host codec.
+(d) on the card: the kernel K5 bitwise against the plain chain at every m
+    it takes (m = 4 .. 256 on its several-rows-a-block instantiations), and
+    the device codec against the host codec.
 
 JAX is imported inside the tests that use it, so the card tests also run
 where JAX is not installed."""
@@ -119,6 +121,46 @@ def test_fft_pass_split_is_bitwise_plain(m):
     want_re, want_im = tfft.fft_plain(re, im, m)
     assert torch.equal(got_re, want_re) and torch.equal(got_im, want_im)
     assert torch.equal(torch.signbit(got_re), torch.signbit(want_re))
+
+
+# csrc/fft.cu's fft_small_kernel (m <= 256): values and threads of a block
+SMALL_FFT_VALUES, SMALL_FFT_THREADS = 1024, 256
+
+
+@pytest.mark.parametrize("m,rows", [(4, 300), (32, 5), (256, 6)])
+def test_fft_small_row_schedule_is_bitwise_plain(m, rows):
+    """K5's m <= 256 schedule: the rows packed 1024 / m to a block (the last
+    block padded), each stage's thread tid taking butterfly j = tid mod m/2
+    of the block rows tid / (m/2) + k 512 / m, k < 2, under twiddle
+    2^s - 1 + (j mod 2^s), applied with the plain butterfly: every stage
+    covers each block's values once, and the result is bitwise fft_plain's."""
+    x = _complex_rows(rows, m, np.random.default_rng(m))
+    re, im = _fft_inputs(x)
+    tw_re, tw_im = (torch.from_numpy(t.copy()) for t in tfft.fft_tables(m))
+    logm, per_block = m.bit_length() - 1, SMALL_FFT_VALUES // m
+    blocks = -(-rows // per_block)
+    planes = []
+    for plane in (re, im):
+        buf = torch.zeros(blocks * SMALL_FFT_VALUES, dtype=torch.float64)
+        buf[: rows * m] = plane.reshape(-1)
+        planes.append(buf.view(blocks, SMALL_FFT_VALUES))
+    vr, vi = planes
+    tid = torch.arange(SMALL_FFT_THREADS)[:, None]
+    rb = (tid >> (logm - 1)) + torch.arange(2)[None, :] * (SMALL_FFT_THREADS >> (logm - 1))
+    j = tid & (m // 2 - 1)
+    for s in range(logm):
+        t = 1 << s
+        lo = (rb << logm) + 2 * t * (j >> s) + (j & (t - 1))
+        hi = lo + t
+        assert torch.equal(torch.cat([lo.flatten(), hi.flatten()]).sort().values,
+                           torch.arange(SMALL_FFT_VALUES))
+        w = t - 1 + (j & (t - 1))
+        ar, ai, br, bi = _butterfly(vr[:, lo], vi[:, lo], vr[:, hi], vi[:, hi], tw_re[w], tw_im[w])
+        vr, vi = vr.clone(), vi.clone()
+        vr[:, lo], vi[:, lo], vr[:, hi], vi[:, hi] = ar, ai, br, bi
+    want_re, want_im = tfft.fft_plain(re, im, m)
+    assert torch.equal(vr.reshape(-1)[: rows * m].view(rows, m), want_re)
+    assert torch.equal(vi.reshape(-1)[: rows * m].view(rows, m), want_im)
 
 
 def test_balanced_digits_recompose_exactly():
@@ -254,7 +296,7 @@ def test_large_scale_takes_host_codec(device_codec_forced):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 3, 64, 130])
-@pytest.mark.parametrize("m", [512, 1024, 2048, 4096, 8192, 16384])
+@pytest.mark.parametrize("m", [1 << logm for logm in range(2, 15)])
 def test_fft_kernel_matches_plain_on_card(cuda_device, m, rows):  # noqa: F811
     x = _complex_rows(rows, m, np.random.default_rng(m + rows))
     want_re, want_im = tfft.fft_plain(*_fft_inputs(x), m)
@@ -267,9 +309,10 @@ def test_fft_kernel_matches_plain_on_card(cuda_device, m, rows):  # noqa: F811
 
 
 @pytest.mark.cuda
-def test_device_codec_on_card_against_host(cuda_device):  # noqa: F811
-    params = tctx.create_ckks_params(4096, 28, 3, use_security_budget=False)
-    v = _complex_rows(2, 2048)
+@pytest.mark.parametrize("n", [256, 4096])
+def test_device_codec_on_card_against_host(cuda_device, n):  # noqa: F811
+    params = tctx.create_ckks_params(n, 28, 3, use_security_budget=False)
+    v = _complex_rows(2, n // 2)
     before = kernels.LAUNCHES["fft"]
     pt = tckks.encode(v, params, device=cuda_device)
     host = tckks.encode(v, params, device="cpu")

@@ -196,11 +196,12 @@ def test_ksk_gen_alpha_above_specials_raises(num_special, alpha):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 3, 64])
-@pytest.mark.parametrize("logn", range(10, 16))
+@pytest.mark.parametrize("logn", range(3, 16))
 def test_ext_prod_conv_kernel_matches_plain_on_card(cuda_device, logn, rows):  # noqa: F811
-    """K4 at every n it takes, R = 1, 3, 64, D = 3 digit groups and L_ext = 7
-    (5 + 2 limbs): bitwise equal to its plain version (plain forward NTT of
-    the converted digits, ks_contract) on the same card; and, at R = 3, the
+    """K4 at every n it takes (n = 8 .. 512 several rows a block), R = 1, 3,
+    64, D = 3 digit groups and L_ext = 7 (5 + 2 limbs): bitwise equal to its
+    plain version (plain forward NTT of the converted digits, ks_contract)
+    on the same card; and, at R = 3, the
     alpha=2 ext_prod on the card (base conversion, then K4) bitwise equal to
     the plain path on the CPU."""
     n = 1 << logn

@@ -1,9 +1,10 @@
 """hehub_tpu_torch.ops.ntt against hehub_tpu.ops.ntt: the plain forward
 chain bitwise, the plain inverse equal mod q (and, on the XLA path that
 the JAX package takes on the CPU, bitwise), round trips, the wrappers'
-input checks, the register-group schedules of the CUDA kernels K1/K2
-applied with the plain butterflies, and — on the card — K1/K2 themselves
-bitwise against the plain chains.
+input checks, the register-group schedules of the CUDA kernels K1/K2 and
+the several-rows-a-block schedule of their n <= 512 instantiations applied
+with the plain butterflies, and — on the card — K1/K2 themselves bitwise
+against the plain chains.
 
 The JAX package is imported inside the tests that use it, so the card test
 also runs where JAX is not installed."""
@@ -78,9 +79,10 @@ def test_wrappers_reject_other_devices_and_sizes():
         tn.ntt(ctx, meta, IDS)
     with pytest.raises(ValueError):
         tn.intt(ctx, meta, IDS)
-    for n in (512, 65536, 3000):
+    for n in (4, 65536, 3000):
         with pytest.raises(ValueError):
             kernels._log_n(n)
+    assert [kernels._log_n(n) for n in (8, 512, 32768)] == [3, 9, 15]
 
 
 def test_u32_bits_round_trip():
@@ -200,17 +202,84 @@ def test_register_schedules_are_bitwise_plain(n):
         assert torch.equal(_reg_index(tid, e, groups[-1][0]), tid * (1 << eb) + e)
 
 
+# csrc/smallrow.cuh: values and threads of a block of the n <= 512 kernels
+SMALL_VALUES, SMALL_THREADS = 2048, 256
+
+
+def _small_schedule(x, tw, tw_sh, q, two_q, last=None):
+    """csrc/smallrow.cuh's schedule with the plain butterflies of
+    ops/modarith.py on rows x [rows, n] (row r under limb r % L): the rows
+    packed SMALL_VALUES / n to a block (the last block padded), and in each
+    stage thread tid's butterflies k < 4 acting on butterfly j = tid mod n/2
+    of the block rows tid / (n/2) + k SMALL_THREADS / (n/2). Asserts that
+    every stage's butterflies cover each block's values exactly once.
+    Inverse when `last` = (w_last, w_last_sh, n_inv, n_inv_sh) [L, 1]."""
+    rows, n = x.shape
+    L, logn = tw.shape[0], n.bit_length() - 1
+    per_block = SMALL_VALUES // n
+    blocks = -(-rows // per_block)
+    buf = torch.zeros(blocks * SMALL_VALUES, dtype=torch.int64)
+    buf[: rows * n] = x.reshape(-1)
+    buf = buf.view(blocks, SMALL_VALUES)
+    tid = torch.arange(SMALL_THREADS)[:, None]
+    rb = (tid >> (logn - 1)) + torch.arange(4)[None, :] * (SMALL_THREADS >> (logn - 1))
+    limb = (torch.arange(blocks)[:, None, None] * per_block + rb) % L  # [blocks, T, 4]
+    j = tid & (n // 2 - 1)
+    for s in range(logn):
+        t = 1 << s if last is not None else n >> (s + 1)
+        i = j >> s if last is not None else j >> (logn - 1 - s)
+        lo = (rb << logn) + 2 * t * i + (j & (t - 1))
+        hi = lo + t
+        assert torch.equal(torch.cat([lo.flatten(), hi.flatten()]).sort().values,
+                           torch.arange(SMALL_VALUES))
+        a, b = buf[:, lo], buf[:, hi]
+        qk, two_qk = q[limb, 0], two_q[limb, 0]
+        if last is None:
+            w_at = (1 << s) + i
+            wh = ma.shoup_mul_lazy(b, tw[limb, w_at], tw_sh[limb, w_at], qk)
+            new_lo, new_hi = ma.add_lazy(a, wh, two_qk), ma.sub_lazy(a, wh, two_qk)
+        elif s + 1 < logn:
+            w_at = (n >> (s + 1)) + i
+            new_lo = ma.add_lazy(a, b, two_qk)
+            new_hi = ma.shoup_mul_lazy(a + two_qk - b, tw[limb, w_at], tw_sh[limb, w_at], qk)
+        else:
+            w, w_sh, n_inv, n_inv_sh = (c[limb, 0] for c in last)
+            new_lo = ma.shoup_mul_lazy(a + b, n_inv, n_inv_sh, qk)
+            new_hi = ma.shoup_mul_lazy(a + two_qk - b, w, w_sh, qk)
+        buf = buf.clone()
+        buf[:, lo], buf[:, hi] = new_lo, new_hi
+    return buf.reshape(-1)[: rows * n].view(rows, n)
+
+
+@pytest.mark.parametrize("n,batch", [(8, 257), (64, 5), (512, 6)])
+def test_small_row_schedule_is_bitwise_plain(n, batch):
+    """The schedule of K1's and K2's n <= 512 instantiations (several rows a
+    block, a ragged last block; each thread's butterflies, rows, limbs and
+    twiddle indices; the inverse's n^-1 fold), applied with the plain
+    butterflies to [batch, 3, n]: bitwise ntt_fwd / ntt_inv."""
+    ctx = _port_ctx(n)
+    x = torch.from_numpy(
+        lazy_residues(np.random.default_rng(n), (batch,), ctx.moduli_of(IDS), n).astype(np.int64))
+    fwd = [ctx.device_rows(nm, IDS, "cpu") for nm in tn.FWD_TABLES]
+    inv = [ctx.device_rows(nm, IDS, "cpu") for nm in tn.INV_TABLES]
+    rows = x.reshape(-1, n)
+    assert torch.equal(_small_schedule(rows, *fwd).view_as(x), tn.ntt_fwd(x, *fwd))
+    assert torch.equal(_small_schedule(rows, *inv[:4], last=inv[4:]).view_as(x),
+                       tn.ntt_inv(x, *inv))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n,batch,L,against",
-    [(1024, 3, 4, "cpu"), (16384, 2, 4, "cpu")]
-    + [(1 << logn, batch, L, "card") for logn in range(10, 16) for batch in (1, 3, 128, 133)
+    [(1024, 3, 4, "cpu"), (16384, 2, 4, "cpu"), (8, 3, 4, "cpu"), (256, 3, 4, "cpu")]
+    + [(1 << logn, batch, L, "card") for logn in range(3, 16) for batch in (1, 3, 128, 133)
        for L in (1, 4)])
 def test_kernels_match_plain_on_card(cuda_device, n, batch, L, against):  # noqa: F811
     """K1 and K2 on [batch, L, n], one launch each, bitwise against the plain
     chains: on the CPU (through the wrappers), or on the same card at every
-    n the kernels take and around one row per SM (133 is one more than the
-    SM count)."""
+    n the kernels take (n = 8 .. 512 on the several-rows-a-block
+    instantiations) and around one row per SM (133 is one more than the SM
+    count)."""
     ctx = _port_ctx(n, levels=3)
     ids = tuple(range(L))
     x = torch.from_numpy(lazy_residues(RNG, (batch,), ctx.moduli_of(ids), n).astype(np.int64))

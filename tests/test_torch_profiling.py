@@ -33,3 +33,11 @@ def test_kernel_time_refuses_more_launches_than_calls(monkeypatch):
                         _trace([("ours", 40.0)]) + [("ours", 40.0)])
     with pytest.raises(RuntimeError, match="11 launches"):
         profiling.kernel_time(lambda: None, ours=True, iters=ITERS)
+
+
+def test_kernel_time_retraces_a_trace_that_lost_most_records(monkeypatch):
+    """A trace holding 4 of 10 launches (the profiler lost the rest) is taken
+    again; the next, whole one gives the time."""
+    traces = iter([_trace([("ours", 40.0)], drop=range(6)), _trace([("ours", 30.0)])])
+    monkeypatch.setattr(profiling, "_kernel_spans", lambda fn, ours, warmup, iters: next(traces))
+    assert profiling.kernel_time(lambda: None, ours=True, iters=ITERS) == pytest.approx(30e-6)

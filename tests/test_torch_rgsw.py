@@ -140,11 +140,12 @@ def test_relin_key_from_torch_keygen_decrypts_to_noise():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows", [1, 3, 64])
-@pytest.mark.parametrize("logn", range(10, 16))
+@pytest.mark.parametrize("logn", range(3, 16))
 def test_ext_prod_kernel_matches_plain_on_card(cuda_device, logn, rows):  # noqa: F811
-    """K3 at every n it takes, R = 1, 3, 64 and L_ext = 5 (4 + 1 limbs):
-    bitwise equal to its plain version (each strict digit broadcast over the
-    extended limbs, plain forward NTT, ks_contract) on the same card; and,
+    """K3 at every n it takes (n = 8 .. 512 several rows a block), R = 1, 3,
+    64 and L_ext = 5 (4 + 1 limbs): bitwise equal to its plain version (each
+    strict digit broadcast over the extended limbs, plain forward NTT,
+    ks_contract) on the same card; and,
     at R = 3, the alpha=1 ext_prod on the card (digits, int32 conversion and
     a keygen-made relin key read through its strides) bitwise equal to the
     plain path on the CPU."""

@@ -53,6 +53,59 @@ def ext_prod_case(n, num_levels, num_special, R, device, seed):
     return ctx, ids_ext, tabs, to(strict), to(conv), to(key)
 
 
+def jit_reference_ops(mp):
+    """Run hehub_tpu's NTTs, external products, key-switch digits and
+    special-prime divisions under jax.jit, one compiled function per
+    (operation, limbs, shape), for the rest of the monkeypatch context `mp`.
+
+    Called eagerly, as the circuits call them, each of them compiles every
+    primitive of its stage chains anew at each level (about 10 s a level at
+    n=256 on the CPU); jitted, the same integer arithmetic gives the same
+    bits in a fraction of that, and every later call at a level seen before
+    reuses its compiled function."""
+    import jax
+
+    from hehub_tpu.core import basecnv
+    from hehub_tpu.core.rns import RnsPoly
+    from hehub_tpu.ops import ntt as nttmod
+    from hehub_tpu.rlwe import rgsw
+
+    cache = {}
+
+    def cached(key, make):
+        if key not in cache:
+            cache[key] = jax.jit(make())
+        return cache[key]
+
+    def with_key(name, orig):
+        def call(ctx, poly, key):
+            k = (name, id(ctx), poly.form, poly.limb_ids, poly.data.shape, key.limb_ids,
+                 key.alpha, key.data.shape)
+            f = cached(k, lambda: lambda d, kd: orig(ctx, RnsPoly(d, poly.form, poly.limb_ids),
+                                                     rgsw.RgswCt(kd, key.limb_ids, key.alpha)))
+            return f(poly.data, key.data)
+        return call
+
+    mp.setattr(rgsw, "ext_prod", with_key("ext_prod", rgsw.ext_prod))
+    mp.setattr(rgsw, "ks_digits", with_key("ks_digits", rgsw.ks_digits))
+    div = basecnv.div_last_rounded_pair
+
+    def div_pair(ctx, a, b, plain_modulus=None, restore_plain_scale=True):
+        if plain_modulus is not None:
+            return div(ctx, a, b, plain_modulus, restore_plain_scale)
+        f = cached(("div", id(ctx), a.form, a.limb_ids, a.data.shape), lambda: lambda x, y: div(
+            ctx, RnsPoly(x, a.form, a.limb_ids), RnsPoly(y, a.form, a.limb_ids)))
+        return f(a.data, b.data)
+
+    mp.setattr(basecnv, "div_last_rounded_pair", div_pair)
+    for name in ("ntt", "intt"):
+        def transform(ctx, data, limb_ids, orig=getattr(nttmod, name), name=name):
+            ids = tuple(limb_ids)
+            return cached((name, id(ctx), ids, data.shape),
+                          lambda: lambda d: orig(ctx, d, ids))(data)
+        mp.setattr(nttmod, name, transform)
+
+
 def plain_ext_prod_conv(ctx, ids_ext, digits, key):
     """The plain PyTorch version of K3/K4 on the digits' device: forward NTT
     of digits [R, D, L_ext, n] by the plain stage chain, then ks_contract
