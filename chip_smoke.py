@@ -2,8 +2,8 @@
 """Smoke run of hehub_tpu_torch on one NVIDIA card (H100): builds the CUDA
 kernels, holds each against its plain PyTorch version at the shapes of the
 paths that run it, then drives the CKKS main path, the hybrid
-key-switching path, the small-ring path and the circuits path end to end
-and checks their results.
+key-switching path, the small-ring path, the circuits path, BGV and the
+bootstrapped TFHE NAND end to end and checks their results.
 
     python3 chip_smoke.py
 
@@ -64,14 +64,36 @@ Phases, each printing its own lines:
      tests' bounds; K1, K2, K4 and K5 must have launched; 2 rows replayed
      on the CPU bitwise; each circuit's CUDA-event time per ciphertext and
      a trace;
-  8. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
+  8. BGV at n=16384 over the full 128-bit budget (12+2 limbs, alpha=2
+     relinearization key with noise_scale=t, t = 65537), batch 64, keys on
+     the card: simd_encode + encrypt, add, mult_plain, mult + relin,
+     mod_switch, exact decrypt + simd_decode, each exactly numpy's slots
+     mod t, decrypt_device equal to decrypt on the fresh ciphertexts; K1,
+     K2 and K4 must have launched; 2 ciphertexts replayed on the CPU
+     bitwise; then the same at tests/test_bgv.py's n=256, 3+1 limbs,
+     alpha=1 (K1-K3 small); after the row sweep, the steps' times per
+     ciphertext and their traces (its K1/K2 rows join the sweep);
+  9. the bootstrapped TFHE NAND at PRESET_GATE_128 (N=2048, m=740),
+     batch 64, keys on the card: make_nand, the NAND against 1 - (a & b)
+     for every gate; K1 and K2 must have launched, 740 times each at the
+     blind rotation's [640, 1, 2048] and [128, 1, 2048] (timed first at
+     those shapes, as in phase 3); 1 gate replayed on the CPU bitwise,
+     its blind rotation too; per-gate time (tfhe_gate_ms,
+     tfhe_gates_per_sec); last, traces of 8 CMUX steps and of one NAND;
+  10. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
      `launch_weighted_kernel_ms`; then the five small-ring records
      `*_small_n` / `fft_small_m`, whose launches are the small-ring
-     path's); the card line; last, the result line {"ok": true, "device":
-     {...}}.
+     paths'; then `ntt_fwd_tfhe` / `ntt_inv_tfhe`, whose launches are the
+     TFHE path's); the card line; last, the result line {"ok": true,
+     "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
+A kernel-only time is read from a window of the profiler's trace that
+begins after a lead-in of small kernels; where the profiler still lost a
+kernel's records in three traces, that time is null in its record, with
+the fault beside it (`*_profiler_fault`), and fails no check unless more
+than half of the `kernels` line's records lack it.
 """
 
 import functools
@@ -86,15 +108,16 @@ import torch
 from hehub_tpu_torch import config, kernels
 from hehub_tpu_torch.circuits import linear_algebra as la
 from hehub_tpu_torch.circuits import poly_eval as pe
-from hehub_tpu_torch.core.context import create_ckks_params, make_context
+from hehub_tpu_torch.core.context import create_bgv_params, create_ckks_params, make_context
 from hehub_tpu_torch.core.rns import RnsPoly
-from hehub_tpu_torch.models import ckks
+from hehub_tpu_torch.models import bgv, ckks, tfhe
 from hehub_tpu_torch.ops import fft as fftmod
 from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.rlwe import keys as keys_mod
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
-from hehub_tpu_torch.utils.profiling import device_time, device_trace, kernel_time, step_time
+from hehub_tpu_torch.utils.profiling import (ProfilerFault, device_time, device_trace,
+                                              kernel_time, step_time)
 
 N = 16384
 NTT_KERNELS = ("ntt_fwd", "ntt_inv")
@@ -146,6 +169,15 @@ MAX_ERR_SIGN = 0.15
 RTOL_INVERSE = 3e-2
 MAX_ERR_ACC = 2.0**-8
 CIRCUIT_REPLAY_ROWS = 2
+# Phase 8, BGV on the hybrid path's chain: 12 + 2 limbs of 30 bits, alpha=2,
+# t = 65537 (create_bgv_params' 17-bit default, SIMD-capable at n=16384);
+# ciphertexts of the batch replayed on the CPU
+BGV_LEVELS = 12
+BGV_REPLAY_ROWS = 2
+# Phase 9, TFHE at PRESET_GATE_128, batch BATCH (bench.py's): gates replayed
+# on the CPU (740 CMUX steps each), CMUX steps in the short trace
+TFHE_REPLAY_GATES = 1
+TFHE_TRACE_STEPS = 8
 
 # Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
 HBM_BYTES_PER_S = 3.35e12  # data sheet
@@ -203,10 +235,23 @@ def bound(nbytes, ops, ops_per_s):
                 bound_bytes_ms=t_bytes * 1e3, bound_ops_ms=t_ops * 1e3)
 
 
+def kernel_only(call, ours=True, key="kernel_ms"):
+    """{key: the kernel-only ms of `call` (profiler)}; where the profiler
+    lost the trace's records, {key: None, key's fault: what was lost}."""
+    try:
+        return {key: kernel_time(call, ours=ours) * 1e3}
+    except ProfilerFault as err:
+        return {key: None, key.replace("_ms", "_profiler_fault"): str(err)}
+
+
 def timed(call):
     """A kernel wrapper's call time (CUDA events around back-to-back Python
     calls, host work included) and its kernel's own device time (profiler)."""
-    return dict(ms=device_time(call) * 1e3, kernel_ms=kernel_time(call, ours=True) * 1e3)
+    return dict(ms=device_time(call) * 1e3, **kernel_only(call))
+
+
+def ratio(a, b):
+    return a / b if a is not None and b else None
 
 
 def ntt_ops(rows, n, inverse=False):
@@ -254,14 +299,12 @@ def fft_other_shapes(dev, gen):
         k, p = kernels.fft(re, im, *tw), fftmod.fft_plain(re, im, m)
         check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]), f"K5 at [{rows}, {m}]")
         natural = torch.complex(re, im)
-        rec = dict(rows=rows, m=m,
-                   kernel_ms=kernel_time(lambda: kernels.fft(re, im, *tw), ours=True) * 1e3,
-                   library_kernel_ms=kernel_time(lambda: torch.fft.fft(natural),
-                                                 ours=False) * 1e3)
-        rec["kernel_over_library"] = rec["kernel_ms"] / rec["library_kernel_ms"]
+        rec = dict(rows=rows, m=m, **kernel_only(lambda: kernels.fft(re, im, *tw)),
+                   **kernel_only(lambda: torch.fft.fft(natural), False, "library_kernel_ms"))
+        rec["kernel_over_library"] = ratio(rec["kernel_ms"], rec["library_kernel_ms"])
         print(f"[kernels] fft at [{rows}, {m}]: bitwise vs plain, kernel-only "
-              f"{rec['kernel_ms']:.4f} ms, torch.fft.fft kernel-only "
-              f"{rec['library_kernel_ms']:.4f} ms, ratio {rec['kernel_over_library']:.3f}")
+              f"{rec['kernel_ms']} ms, torch.fft.fft kernel-only "
+              f"{rec['library_kernel_ms']} ms, ratio {rec['kernel_over_library']}")
         out.append(rec)
     return out
 
@@ -382,7 +425,7 @@ def kernels_vs_plain(ctx, hctx, dev):
         **timed(lambda: kernels.fft(re, im, tw_re, tw_im)),
         plain_ms=device_time(lambda: fftmod.fft_plain(re, im, m), 1, 3) * 1e3,
         library_ms=device_time(lambda: torch.fft.fft(natural)) * 1e3,
-        library_kernel_ms=kernel_time(lambda: torch.fft.fft(natural), ours=False) * 1e3,
+        **kernel_only(lambda: torch.fft.fft(natural), False, "library_kernel_ms"),
         **bound(4 * re.numel() * 8 + 2 * tw_re.numel() * 8,
                 BATCH * (m // 2) * (m.bit_length() - 1) * FFT_BUTTERFLY_FLOPS, FP64_PER_S),
         other_shapes=fft_other_shapes(dev, gen),
@@ -403,18 +446,18 @@ def summarize(records):
     for name, rec in records.items():
         check(rec["max_abs_err"] == 0, f"{name} is not bitwise equal to its plain version")
         rec.setdefault("library_kernel_ms", None)
-        rec["kernel_over_bound"] = rec["kernel_ms"] / rec["bound_ms"]
-        rec["kernel_over_library"] = (rec["kernel_ms"] / rec["library_kernel_ms"]
-                                      if rec["library_kernel_ms"] else None)
+        rec["kernel_over_bound"] = ratio(rec["kernel_ms"], rec["bound_ms"])
+        rec["kernel_over_library"] = ratio(rec["kernel_ms"], rec["library_kernel_ms"])
+        faults = [v for k, v in rec.items() if k.endswith("profiler_fault")]
         print(f"[kernels] {name}: {rec['match']}, max_abs_err={rec['max_abs_err']}, "
-              f"kernel-only {rec['kernel_ms']:.4f} ms, call {rec['ms']:.4f} ms, "
+              f"kernel-only {rec['kernel_ms']} ms, call {rec['ms']:.4f} ms, "
               f"plain {rec['plain_ms']:.4f} ms, "
               f"bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
               f"(bytes {rec['bound_bytes_ms']:.4f} ms, operations {rec['bound_ops_ms']:.4f} ms), "
-              f"kernel-only / bound {rec['kernel_over_bound']:.3f}, "
+              f"kernel-only / bound {rec['kernel_over_bound']}, "
               f"library call {rec['library_ms']} ms, library kernel-only "
               f"{rec['library_kernel_ms']} ms, kernel-only / library kernel-only "
-              f"{rec['kernel_over_library']}")
+              f"{rec['kernel_over_library']}" + "".join(f", {f}" for f in faults))
 
 
 def ntt_row_sweep(hctx, dev, path_rows):
@@ -440,15 +483,9 @@ def ntt_row_sweep(hctx, dev, path_rows):
             got = nttmod.from_u32_bits(launch(x32, *tabs32))
             want = plain(x, *(hctx.device_rows(nm, ids, dev) for nm in names))
             check(torch.equal(got, want), f"{kind} at {rows} rows differs from the plain chain")
-            call = functools.partial(launch, x32, *tabs32)
-            try:
-                times = timed(call)
-            except RuntimeError as err:  # the profiler lost the trace's records
-                times = dict(ms=device_time(call) * 1e3, kernel_ms=None, profiler_fault=str(err))
-            rec = dict(limbs=L, **times, **bound(2 * rows * N * 4,
-                                                 ntt_ops(rows, N, kind == "ntt_inv"), INT32_PER_S))
-            rec["kernel_over_bound"] = (rec["kernel_ms"] / rec["bound_ms"] if rec["kernel_ms"]
-                                        else None)
+            rec = dict(limbs=L, **timed(functools.partial(launch, x32, *tabs32)),
+                       **bound(2 * rows * N * 4, ntt_ops(rows, N, kind == "ntt_inv"), INT32_PER_S))
+            rec["kernel_over_bound"] = ratio(rec["kernel_ms"], rec["bound_ms"])
             out[kind][rows] = rec
             del x, got, want
     for kind in out:
@@ -457,7 +494,7 @@ def ntt_row_sweep(hctx, dev, path_rows):
                   f"rows): bitwise vs plain, kernel-only {rec['kernel_ms']} ms, call "
                   f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms by {rec['bound_by']}, "
                   f"kernel-only / bound {rec['kernel_over_bound']}"
-                  + (f", {rec['profiler_fault']}" if "profiler_fault" in rec else ""))
+                  + (f", {rec['kernel_profiler_fault']}" if rec["kernel_ms"] is None else ""))
     return out
 
 
@@ -799,7 +836,7 @@ def small_kernels(dev):
         **timed(lambda: kernels.fft(re, im, *tw)),
         plain_ms=device_time(lambda: fftmod.fft_plain(re, im, m), 1, 3) * 1e3,
         library_ms=device_time(lambda: torch.fft.fft(natural)) * 1e3,
-        library_kernel_ms=kernel_time(lambda: torch.fft.fft(natural), ours=False) * 1e3,
+        **kernel_only(lambda: torch.fft.fft(natural), False, "library_kernel_ms"),
         **bound(4 * re.numel() * 8 + 2 * tw[0].numel() * 8,
                 R * (m // 2) * (m.bit_length() - 1) * FFT_BUTTERFLY_FLOPS, FP64_PER_S))
     summarize(records)
@@ -987,6 +1024,252 @@ def circuits_path(dev):
     return launches, rows, timings
 
 
+def _bgv_rows_on_cpu(ct, rows):
+    take = lambda p: RnsPoly(p.data[:rows].cpu(), p.form, p.limb_ids)  # noqa: E731
+    return bgv.BgvCt(take(ct.c0), take(ct.c1), ct.plain_modulus)
+
+
+def _bgv_run(tag, params, dev, alpha, seed):
+    """Keygen, the relinearization key (noise_scale=t), simd_encode +
+    encrypt of three batches of slots, add, mult_plain, mult (+ relin),
+    mod_switch, exact decrypt + simd_decode of each, between a reset and a
+    read of the launch counts; every result exactly numpy's mod t, and
+    decrypt_device equal to decrypt on the fresh ciphertexts. Then the
+    homomorphic steps replayed on the CPU for BGV_REPLAY_ROWS ciphertexts,
+    bitwise. Returns (launches, K1/K2 launches by rows, state)."""
+    ctx = make_context(params)
+    n, t = params.dimension, params.plain_modulus
+    rng = np.random.default_rng(seed)
+    a, b, c = (rng.integers(0, t, (BATCH, n), dtype=np.uint64) for _ in range(3))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sk = rlwe_mod.keygen(ctx, gen)
+    rlk = keys_mod.relin_key(ctx, sk, gen, alpha=alpha, noise_scale=t)
+    pc = bgv.simd_encode(ctx, c, device=dev)
+    ca, cb = (bgv.encrypt(ctx, bgv.simd_encode(ctx, v, device=dev), sk, gen) for v in (a, b))
+    outs = dict(add=bgv.add(ctx, ca, cb), mult_plain=bgv.mult_plain(ctx, ca, pc),
+                mult=bgv.mult(ctx, ca, cb, rlk))
+    outs["mod_switch"] = bgv.mod_switch(ctx, outs["mult"])
+    decoded = {k: bgv.simd_decode(ctx, bgv.decrypt(ctx, ct, sk), device=dev)
+               for k, ct in outs.items()}
+    fresh = {k: (bgv.decrypt(ctx, ct, sk), bgv.decrypt_device(ctx, ct, sk))
+             for k, ct in (("a", ca), ("b", cb))}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    rows = {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS}
+
+    mul = lambda x, y: np.asarray(x.astype(object) * y.astype(object) % t, np.uint64)  # noqa: E731
+    want = dict(add=(a + b) % t, mult_plain=mul(a, c), mult=mul(a, b), mod_switch=mul(a, b))
+    for k, got in decoded.items():
+        check(got.shape == (BATCH, n) and np.array_equal(got, want[k]),
+              f"{tag}: {k} does not decrypt to numpy's slots mod t")
+    for k, (exact, fast) in fresh.items():
+        check(np.array_equal(exact.digits, fast.digits) and np.array_equal(exact.neg, fast.neg),
+              f"{tag}: decrypt_device differs from decrypt on the fresh ciphertext {k}")
+    check(outs["mod_switch"].limb_ids == tuple(range(len(params.moduli) - 1)),
+          f"{tag}: mod_switch limbs {outs['mod_switch'].limb_ids}")
+    print(f"[{tag}] n={n} L={len(params.moduli)}+{len(params.special_mods)} alpha={alpha} "
+          f"t={t} batch={BATCH}: keygen..decode {wall:.3f} s (host clock); add, mult_plain, mult "
+          f"+ relin and mod_switch decrypt exactly to numpy's slots mod t, decrypt_device equals "
+          f"decrypt on the fresh ciphertexts; launches {json.dumps(launches)}")
+    print(f"[{tag}] K1/K2 launches by rows {{rows: launches}}, keygen..decode: {json.dumps(rows)}")
+
+    R = BGV_REPLAY_ROWS
+    t0 = time.perf_counter()
+    ca_c, cb_c, rlk_c = _bgv_rows_on_cpu(ca, R), _bgv_rows_on_cpu(cb, R), _key_on_cpu(rlk)
+    pc_c = bgv.BgvPt(pc.digits[:R], pc.neg[:R], t)
+    replay = dict(add=bgv.add(ctx, ca_c, cb_c), mult_plain=bgv.mult_plain(ctx, ca_c, pc_c),
+                  mult=bgv.mult(ctx, ca_c, cb_c, rlk_c))
+    replay["mod_switch"] = bgv.mod_switch(ctx, replay["mult"])
+    for k, got in replay.items():
+        card = _bgv_rows_on_cpu(outs[k], R)
+        check(got.limb_ids == card.limb_ids and torch.equal(got.c0.data, card.c0.data)
+              and torch.equal(got.c1.data, card.c1.data),
+              f"{tag}: the card's {k} differs from the plain CPU path")
+    print(f"[{tag}] plain CPU replay of {R} ciphertexts: add, mult_plain, mult + relin and "
+          f"mod_switch bitwise equal to the card's ({time.perf_counter() - t0:.1f} s)")
+    return launches, rows, dict(ctx=ctx, sk=sk, rlk=rlk, a=a, pc=pc, ca=ca, cb=cb, gen=gen,
+                                prod=outs["mult"])
+
+
+def bgv_path(dev):
+    """Phase 8: BGV at n=16384 over the full 128-bit budget (12 + 2 limbs,
+    alpha=2, t = 65537), batch 64 (K1, K2, K4 and the plain-modulus NTTs);
+    then the same steps at tests/test_bgv.py's n=256, 3 + 1 limbs, alpha=1
+    (K1-K3 on their small-row instantiations). Returns (launches of the
+    full-width run, its K1/K2 launches by rows, launches of the small-ring
+    run, and a function that prints the times and traces of the steps:
+    main() calls it after the K1/K2 row sweep)."""
+    params = create_bgv_params(N, plain_bits=17, num_levels=BGV_LEVELS, num_special=HYBRID_SPECIAL)
+    check(params.plain_modulus == 65537 and params.simd_capable,
+          f"BGV plain modulus {params.plain_modulus}")
+    launches, rows, s = _bgv_run("bgv", params, dev, ALPHA, 31)
+    for name in ("ntt_fwd", "ntt_inv", "ext_prod_conv"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the BGV path")
+    small = create_bgv_params(SMALL_N, plain_bits=17, num_levels=3, use_security_budget=False)
+    small_launches, _, _ = _bgv_run("bgv small", small, dev, 1, 32)
+    for name in ("ntt_fwd", "ntt_inv", "ext_prod"):
+        check(small_launches[name] > 0, f"kernel {name} was not launched on the small BGV path")
+
+    ctx, sk, rlk, a, pc, ca, cb, gen, prod = (
+        s[k] for k in ("ctx", "sk", "rlk", "a", "pc", "ca", "cb", "gen", "prod"))
+    encode_encrypt = lambda: bgv.encrypt(ctx, bgv.simd_encode(ctx, a, device=dev), sk, gen)  # noqa: E731
+    decrypt_decode = lambda: bgv.simd_decode(ctx, bgv.decrypt(ctx, prod, sk), device=dev)  # noqa: E731
+    steps = {
+        "encode+encrypt": encode_encrypt,
+        "decrypt+decode": decrypt_decode,
+        "mult+relin": lambda: bgv.mult(ctx, ca, cb, rlk),
+        "mod_switch": lambda: bgv.mod_switch(ctx, prod),
+        "mult_plain": lambda: bgv.mult_plain(ctx, ca, pc),
+    }
+    step_launch_rows = step_rows("bgv", steps)
+
+    def timings():
+        metrics = dict(
+            bgv_mult_ms_per_op=device_time(steps["mult+relin"], 1, 5) * 1e3 / BATCH,
+            bgv_mod_switch_ms_per_op=device_time(steps["mod_switch"], 1, 5) * 1e3 / BATCH,
+            bgv_mult_plain_ms_per_op=device_time(steps["mult_plain"], 1, 5) * 1e3 / BATCH,
+            bgv_encode_encrypt_ms=device_time(encode_encrypt, 1, 4) * 1e3 / BATCH,
+            bgv_decrypt_decode_ms=device_time(decrypt_decode, 1, 4) * 1e3 / BATCH,
+            bgv_encode_encrypt_host_ms=step_time(encode_encrypt) * 1e3 / BATCH,
+            bgv_decrypt_decode_host_ms=step_time(decrypt_decode) * 1e3 / BATCH,
+        )
+        print(f"[bgv] times (CUDA events per ciphertext of a batch-{BATCH} call; *_host_ms: host "
+              f"clock, per ciphertext), {card_line()}: {json.dumps(metrics)}")
+        print_traces("bgv", steps)
+
+    return launches, rows, step_launch_rows, small_launches, timings
+
+
+def _tfhe_rows(before, after):
+    """K1/K2 launches by rows between two LAUNCH_ROWS snapshots."""
+    return {k: {r: after[k].get(r, 0) - before[k].get(r, 0) for r in after[k]
+                if after[k].get(r, 0) != before[k].get(r, 0)} for k in NTT_KERNELS}
+
+
+def tfhe_kernel_records(params, dev, gen):
+    """K1 and K2 at the blind rotation's shapes, [B·2·ℓ, 1, N] (the digits)
+    and [B·2, 1, N] (the accumulator difference), bitwise against their
+    plain chains, timed as in phase 3 beside their bounds."""
+    ctx = make_context(params.rlwe_params)
+    n, ids = params.rlwe_dimension, (0,)
+    records = {}
+    for kind, rows, names, plain, launch in (
+            ("ntt_fwd", BATCH * 2 * params.decomp_levels, nttmod.FWD_TABLES, nttmod.ntt_fwd,
+             kernels.ntt_fwd),
+            ("ntt_inv", BATCH * 2, nttmod.INV_TABLES, nttmod.ntt_inv, kernels.ntt_inv)):
+        x = lazy_residues(gen, (rows, 1, n), ctx.device_rows("two_q", ids, dev))
+        t32 = [ctx.device_rows(nm, ids, dev, torch.int32) for nm in names]
+        t64 = [ctx.device_rows(nm, ids, dev) for nm in names]
+        x32 = nttmod.to_u32_bits(x)
+        err = int((nttmod.from_u32_bits(launch(x32, *t32)) - plain(x, *t64)).abs().max())
+        records[f"{kind}_tfhe"] = dict(
+            **origin(kind), match="bitwise vs plain", shape=f"[{rows}, 1, {n}]",
+            max_abs_err=err, **timed(functools.partial(launch, x32, *t32)),
+            plain_ms=device_time(lambda: plain(x, *t64), 1, 3) * 1e3, library_ms=None,
+            **bound(2 * x32.numel() * 4, ntt_ops(rows, n, kind == "ntt_inv"), INT32_PER_S))
+    summarize(records)
+    return records
+
+
+def tfhe_path(dev):
+    """Phase 9: the bootstrapped TFHE NAND at PRESET_GATE_128 (N = 2048,
+    m = 740, ℓ = 5 digits of 6 bits, key switch 6 digits of 5 bits), batch
+    64: keygen on the card, make_nand, encryption of random bit pairs, the
+    NAND, decryption, against 1 − (a & b); K1 and K2 must have launched,
+    740 steps of [640, 1, 2048] and [128, 1, 2048]; 1 gate replayed on the
+    CPU bitwise (its blind rotation too); per-gate time; K1/K2 at those
+    shapes. Returns (launches, records, NAND launches by rows, and a
+    function that traces 8 CMUX steps and one whole NAND: main() calls it
+    last)."""
+    params = tfhe.PRESET_GATE_128
+    n, m, q = params.rlwe_dimension, params.lwe_dimension, params.q
+    print(f"[tfhe] PRESET_GATE_128: N={n} m={m} q={q} decomp {params.decomp_levels} x "
+          f"{params.decomp_bits} bits, key switch {params.ks_levels} x {params.ks_decomp_bits} "
+          f"bits; security_bits() = {params.security_bits():.4f}")
+    rng = np.random.default_rng(41)
+    b1, b2 = (rng.integers(0, 2, BATCH) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(41)
+    # kernel-only times first: after the NAND's ~45 000 launches a call, the
+    # profiler kept 5 of 10 records of a kernel, three traces running, on an
+    # H100
+    records = tfhe_kernel_records(params, dev, gen)
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    keys = tfhe.keygen(params, gen)
+    nand = tfhe.make_nand(params, keys)
+    c1, c2 = (tfhe.lwe_encrypt(params, tfhe.encode_bit(params, v, dev), keys.lwe_s, gen)
+              for v in (b1, b2))
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    before = {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS}
+    t1 = time.perf_counter()
+    out = nand(c1, c2)
+    got = tfhe.lwe_decrypt_bit(params, out, keys.lwe_s).cpu().numpy()
+    t_gate = time.perf_counter() - t1
+    launches = dict(kernels.LAUNCHES)
+    gate_rows = _tfhe_rows(before, {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS})
+    check(np.array_equal(got, 1 - (b1 & b2)), f"NAND outputs {got} are not 1 - (a & b)")
+    for name in NTT_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched on the TFHE path")
+    digit_rows, diff_rows = BATCH * 2 * params.decomp_levels, BATCH * 2
+    check(gate_rows["ntt_fwd"].get(digit_rows) == m
+          and gate_rows["ntt_inv"].get(diff_rows) == m + 1,
+          f"NAND launch rows {gate_rows}: expected {m} K1 launches of {digit_rows} rows and "
+          f"{m + 1} K2 launches of {diff_rows} rows (the steps and the final INTT)")
+    print(f"[tfhe] batch {BATCH}: keygen + make_nand + encrypt {t_setup:.3f} s, first NAND + "
+          f"decrypt {t_gate:.3f} s (host clock); all {BATCH} NANDs equal 1 - (a & b); launches "
+          f"{json.dumps(launches)}; K1/K2 launches by rows of the NAND {{rows: launches}}: "
+          f"{json.dumps(gate_rows)}")
+
+    # gates replayed on the CPU through the plain path, their blind rotation too
+    R = TFHE_REPLAY_GATES
+    cpu_keys = tfhe.TfheKeys(None, None, nand.bsk.cpu(), nand.ksk_a.cpu(), nand.ksk_b.cpu())
+    cpu_tables = (nand.t_mont.cpu(), nand.tm1_mont.cpu())
+    lut = torch.full((n,), q // 8, dtype=torch.int64)
+    t0 = time.perf_counter()
+    lin = tfhe._nand_linear(params, *(tfhe.LweCt(c.a[:R].cpu(), c.b[:R].cpu()) for c in (c1, c2)))
+    a_t, b_t = tfhe._mod_switch_2n(params, lin.a), tfhe._mod_switch_2n(params, lin.b)
+    acc_cpu = tfhe.blind_rotate(params, lut, a_t, b_t, cpu_keys.bsk, cpu_tables)
+    out_cpu = tfhe.key_switch(params, tfhe.sample_extract(params, acc_cpu), cpu_keys)
+    t_replay = time.perf_counter() - t0
+    acc_card = tfhe.blind_rotate(params, lut.to(dev), a_t.to(dev), b_t.to(dev), nand.bsk,
+                                 (nand.t_mont, nand.tm1_mont))
+    check(torch.equal(acc_cpu, acc_card.cpu()),
+          "TFHE: the card's blind rotation differs from the plain CPU path")
+    check(torch.equal(out_cpu.a, out.a[:R].cpu()) and torch.equal(out_cpu.b, out.b[:R].cpu()),
+          "TFHE: the card's NAND differs from the plain CPU path")
+    print(f"[tfhe] plain CPU replay of {R} gate(s): blind rotation and NAND output bitwise equal "
+          f"to the card's ({t_replay:.1f} s on the CPU)")
+
+    call = lambda: nand(c1, c2)  # noqa: E731
+    gate_ms = device_time(call, 1, 3) * 1e3 / BATCH
+    gate_host_ms = step_time(call, 0, 2) * 1e3 / BATCH
+    metrics = dict(tfhe_gate_ms=gate_ms, tfhe_gates_per_sec=1e3 / gate_ms,
+                   tfhe_gate_host_ms=gate_host_ms, tfhe_gates_per_sec_host=1e3 / gate_host_ms)
+    print(f"[tfhe] times (CUDA events around a batch-{BATCH} NAND, per gate; *_host: host clock), "
+          f"{card_line()}: {json.dumps(metrics)}")
+
+    def traces():
+        steps = TFHE_TRACE_STEPS
+        lin = tfhe._nand_linear(params, c1, c2)
+        a_full, b_full = tfhe._mod_switch_2n(params, lin.a), tfhe._mod_switch_2n(params, lin.b)
+        few = lambda: tfhe.blind_rotate(params, lut.to(dev), a_full[:, :steps], b_full,  # noqa: E731
+                                        nand.bsk[:steps], (nand.t_mont, nand.tm1_mont))
+        print(f"[tfhe] torch.profiler trace of {steps} CMUX steps of a batch-{BATCH} blind "
+              f"rotation: {json.dumps(device_trace(few))}")
+        print(f"[tfhe] torch.profiler trace of one batch-{BATCH} NAND: "
+              f"{json.dumps(device_trace(call))}")
+
+    return launches, records, gate_rows, traces
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1018,13 +1301,20 @@ def main() -> int:
     small_launches = small_path(dev)
     torch.cuda.empty_cache()
     circuit_launches, circuit_rows, circuit_timings = circuits_path(dev)
-    path_rows = {"main": main_rows, "hybrid": hybrid_rows, "circuits": circuit_rows}
+    bgv_launches, bgv_rows, bgv_steps, bgv_small_launches, bgv_timings = bgv_path(dev)
+    path_rows = {"main": main_rows, "hybrid": hybrid_rows, "circuits": circuit_rows,
+                 "bgv": bgv_rows}
     sweep = ntt_row_sweep(hctx, dev, tuple(path_rows.values()))
-    weighted = launch_weighted(sweep, path_rows, {"main": main_steps, "hybrid": hybrid_steps})
-    circuit_timings()
-    del circuit_timings
+    weighted = launch_weighted(sweep, path_rows, {"main": main_steps, "hybrid": hybrid_steps,
+                                                  "bgv": bgv_steps})
     torch.cuda.empty_cache()
-    by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches}
+    tfhe_launches, tfhe_records, tfhe_gate_rows, tfhe_traces = tfhe_path(dev)
+    circuit_timings()
+    bgv_timings()
+    del circuit_timings, bgv_timings
+    torch.cuda.empty_cache()
+    by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches,
+               "bgv": bgv_launches}
     for k, rec in records.items():
         rec["launches_by_path"] = {tag: counts[k] for tag, counts in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -1037,10 +1327,22 @@ def main() -> int:
         records[k]["launch_weighted_kernel_ms"] = weighted[k]
     for name, rec in small_records.items():
         kind = name.rsplit("_small", 1)[0]
-        rec["launches"] = small_launches[kind]
-        rec["launches_by_path"] = {"small": small_launches[kind]}
-        check(rec["launches"] > 0, f"kernel {name} was not launched on the small-n path")
+        rec["launches_by_path"] = {"small": small_launches[kind],
+                                   "bgv_small": bgv_small_launches[kind]}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        check(rec["launches"] > 0, f"kernel {name} was not launched on the small-n paths")
     records.update(small_records)
+    for name, rec in tfhe_records.items():
+        kind = name.rsplit("_tfhe", 1)[0]
+        rec["launches"] = tfhe_launches[kind]
+        rec["launches_by_path"] = {"tfhe": tfhe_launches[kind]}
+        rec["nand_launches_by_rows"] = tfhe_gate_rows[kind]
+        check(rec["launches"] > 0, f"kernel {name} was not launched on the TFHE path")
+    records.update(tfhe_records)
+    lost = [k for k, rec in records.items() if rec["kernel_ms"] is None]
+    check(2 * len(lost) <= len(records),
+          f"the profiler gave no kernel-only time for {lost}: the instrument, not a dropped record")
+    tfhe_traces()
     print(json.dumps({"kernels": [dict(name=k, **rec) for k, rec in records.items()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,

@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from hehub_tpu_torch.core.rns import RnsPoly
+from hehub_tpu_torch.models.bgv import BgvCt, BgvPt
 from hehub_tpu_torch.models.ckks import CkksCt
+from hehub_tpu_torch.models.tfhe import LweCt, TfheKeys
 from hehub_tpu_torch.rlwe.rgsw import RgswCt
 from hehub_tpu_torch.rlwe.rlwe import RlweSk
 
@@ -53,3 +55,33 @@ def ct_from_numpy(c0, c1, limb_ids: Tuple[int, ...], scale: float, device="cuda"
         poly_from_numpy(c1, "ntt", limb_ids, device),
         float(scale),
     )
+
+
+def bgv_ct_from_numpy(c0, c1, limb_ids: Tuple[int, ...], plain_modulus: int,
+                      device="cuda") -> BgvCt:
+    """NTT-form BGV ciphertext from its two halves [..., L, n]."""
+    return BgvCt(
+        poly_from_numpy(c0, "ntt", limb_ids, device),
+        poly_from_numpy(c1, "ntt", limb_ids, device),
+        int(plain_modulus),
+    )
+
+
+def bgv_pt_from_numpy(digits, neg, plain_modulus: int) -> BgvPt:
+    """BGV plaintext from its digit form (uint32 digits [..., 3, n], signs
+    [..., n]); plaintexts stay on the host, as in the JAX package."""
+    return BgvPt(np.asarray(digits, np.uint32), np.asarray(neg, np.uint32), int(plain_modulus))
+
+
+def tfhe_keys_from_numpy(lwe_s, sk: RlweSk, bsk, ksk_a, ksk_b, device="cuda") -> TfheKeys:
+    """TFHE keys from the LWE secret [m], the ring secret (sk_from_numpy),
+    the bootstrap key [m, 2, l, 2, N] and the key-switch key ksk_a [N, kl,
+    m], ksk_b [N, kl]. The JAX keys' Shoup companions of the key-switch key
+    are not needed here."""
+    return TfheKeys(_tensor(lwe_s, device), sk, _tensor(bsk, device), _tensor(ksk_a, device),
+                    _tensor(ksk_b, device))
+
+
+def lwe_ct_from_numpy(a, b, device="cuda") -> LweCt:
+    """LWE ciphertext(s) from a [..., m] and b [...]."""
+    return LweCt(_tensor(a, device), _tensor(b, device))

@@ -1,16 +1,18 @@
-"""RNS base manipulation of CKKS (port of the CKKS parts of
-hehub_tpu/core/basecnv.py): the exact divide-by-last-limb with rounding
-behind rescale and the special-prime drop, the general k -> m base
-conversion behind hybrid key switching, the base-2^22 digit interchange
-formats of encode (unsigned digits from the host codec, balanced digits
-from the device codec), and the Garner mixed-radix conversion of decode.
-All exact integer algorithms, elementwise with per-limb host constants.
+"""RNS base manipulation (port of hehub_tpu/core/basecnv.py): signed
+single-limb lifts, the exact divide-by-last-limb with rounding behind CKKS
+rescale, BGV modulus switching and the special-prime drop, the general
+k -> m base conversion behind hybrid key switching, the base-2^22 digit
+interchange formats of encode (unsigned digits from the host codec,
+balanced digits from the device codec), the Garner mixed-radix conversion
+of decode and BGV decrypt, and the host-exact compose paths.
+All device steps are exact integer algorithms, elementwise with per-limb
+host constants.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,25 +24,54 @@ from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.utils import hostmath as hm
 
 
+def lift_signed_single(ctx: Context, coeffs, src_mod: int, dst_ids: Tuple[int, ...]) -> RnsPoly:
+    """Signed lift of strict residues mod t (t below every target modulus)
+    into the limbs `dst_ids`: values >= t/2 are taken as negative.
+    coeffs: [..., n] int64 in [0, t)."""
+    t = int(src_mod)
+    if t >= min(ctx.moduli_of(dst_ids)):
+        raise ValueError("signed single lift requires t < every target modulus")
+    q = ctx.device_rows("q", dst_ids, coeffs.device)
+    x = coeffs[..., None, :]
+    return RnsPoly(torch.where(x < t // 2, x, x + q - t), COEFF, dst_ids)
+
+
 @functools.lru_cache(maxsize=None)
-def _div_last_constants(ctx: Context, ids: Tuple[int, ...], device: str):
-    """Device constants of div_last_rounded for the limbs `ids`:
-    (corr, w1, w1_sh, w, w_sh), each [L-1, 1]."""
+def _div_last_constants(ctx: Context, ids: Tuple[int, ...], device: str,
+                        plain_modulus: Optional[int], restore_plain_scale: bool):
+    """Device constants of div_last_rounded for the limbs `ids`, each [L-1, 1]:
+    (corr, w1, w1_sh, w, w_sh, t_w, t_w_sh), the last two None without a
+    plain modulus. w is q_last^{-1} mod q_j, times (q_last mod t) when the
+    plain scale is restored; t_w is t mod q_j."""
     q_last = ctx.mod_list[ids[-1]]
     rem_ids = ids[:-1]
     rem_mods = ctx.moduli_of(rem_ids)
     corr = np.asarray([(qj - q_last % qj) % qj for qj in rem_mods], np.int64)[:, None]
     w1, w1_sh = shoup_constants(ctx, 1, rem_ids, device)
-    w, w_sh = shoup_constants(
-        ctx, [hm.modinv(q_last % qj, qj) for qj in rem_mods], rem_ids, device
-    )
-    return torch.from_numpy(corr).to(device), w1, w1_sh, w, w_sh
+    scal = [hm.modinv(q_last % qj, qj) for qj in rem_mods]
+    t_w = t_w_sh = None
+    if plain_modulus is not None:
+        if restore_plain_scale:
+            scal = [s * (q_last % plain_modulus) % qj for s, qj in zip(scal, rem_mods)]
+        t_w, t_w_sh = shoup_constants(ctx, plain_modulus, rem_ids, device)
+    w, w_sh = shoup_constants(ctx, scal, rem_ids, device)
+    return torch.from_numpy(corr).to(device), w1, w1_sh, w, w_sh, t_w, t_w_sh
 
 
-def div_last_rounded(ctx: Context, poly: RnsPoly) -> RnsPoly:
+def div_last_rounded(ctx: Context, poly: RnsPoly, plain_modulus: Optional[int] = None,
+                     restore_plain_scale: bool = True) -> RnsPoly:
     """Exactly divide an NTT-form polynomial by its last RNS limb q_last with
-    rounding, dropping that limb: out ≡ round(x / q_last) mod q_j (the CKKS
-    flavour of the JAX twin; the BGV plain-modulus flavour waits for BGV)."""
+    rounding, dropping that limb.
+
+    plain_modulus=None: the CKKS flavour, out ≡ round(x / q_last) mod q_j.
+
+    plain_modulus=t: the BGV flavour, which divides by q_last while keeping
+    the value mod t through the t^{-1} mod q_last correction, then (for a
+    standalone modulus switch) restores the plaintext scale with
+    (q_last mod t). restore_plain_scale=False is the special-prime drop
+    inside BGV relinearization, whose key-switched value is already
+    q_last-scaled (u ≡ p·d2·s² + t·E): dividing by p alone gives d2·s² mod
+    t exactly."""
     if poly.form != NTT:
         raise ValueError("div_last_rounded expects NTT form")
     if poly.limb_count < 2:
@@ -51,11 +82,15 @@ def div_last_rounded(ctx: Context, poly: RnsPoly) -> RnsPoly:
     q_last = ctx.mod_list[last_id]
     rem_mods = ctx.moduli_of(rem_ids)
     dev = poly.data.device
-    corr, w1, w1_sh, w, w_sh = _div_last_constants(ctx, ids, str(dev))
+    corr, w1, w1_sh, w, w_sh, t_w, t_w_sh = _div_last_constants(
+        ctx, ids, str(dev), plain_modulus, restore_plain_scale)
 
-    # 1. last limb back to coefficients, strict
+    # 1. last limb back to coefficients, strict (BGV: times t^{-1} mod q_last)
     last = nttmod.intt(ctx, poly.data[..., -1:, :], (last_id,))
     v = ma.reduce_strict(last, q_last)
+    if plain_modulus is not None:
+        inv_t = hm.modinv(plain_modulus % q_last, q_last)
+        v = ma.reduce_strict(ma.shoup_mul_lazy(v, inv_t, hm.shoup(inv_t, q_last), q_last), q_last)
 
     # 2. centered remainder under each remaining limb: [0, 2 q_j)
     q = ctx.device_rows("q", rem_ids, dev)
@@ -68,20 +103,25 @@ def div_last_rounded(ctx: Context, poly: RnsPoly) -> RnsPoly:
         r = ma.reduce_strict(ma.shoup_mul_lazy(v, w1, w1_sh, q), q)
     r = r + torch.where(v >= q_last // 2, corr, 0)
 
-    # 3. back to NTT under the remaining limbs
+    # 3. back to NTT under the remaining limbs (BGV: times t)
     r_ntt = nttmod.ntt(ctx, r, rem_ids)
+    if plain_modulus is not None:
+        r_ntt = ma.shoup_mul_lazy(r_ntt, t_w, t_w_sh, q)
 
-    # 4. (x - r) * q_last^{-1} per limb
+    # 4. (x - r) * q_last^{-1} [* (q_last mod t)] per limb
     diff = ma.sub_lazy(poly.data[..., :-1, :], r_ntt, ctx.device_rows("two_q", rem_ids, dev))
     return RnsPoly(ma.shoup_mul_lazy(diff, w, w_sh, q), NTT, rem_ids)
 
 
-def div_last_rounded_pair(ctx: Context, a: RnsPoly, b: RnsPoly) -> Tuple[RnsPoly, RnsPoly]:
+def div_last_rounded_pair(ctx: Context, a: RnsPoly, b: RnsPoly,
+                          plain_modulus: Optional[int] = None,
+                          restore_plain_scale: bool = True) -> Tuple[RnsPoly, RnsPoly]:
     """div_last_rounded on both ciphertext halves in one stacked call: the
     INTT/NTT kernels see twice the rows and half the launches."""
     if a.limb_ids != b.limb_ids or a.form != b.form:
         raise ValueError("pair must share limbs and form")
-    out = div_last_rounded(ctx, RnsPoly(torch.stack([a.data, b.data]), a.form, a.limb_ids))
+    out = div_last_rounded(ctx, RnsPoly(torch.stack([a.data, b.data]), a.form, a.limb_ids),
+                           plain_modulus, restore_plain_scale)
     return (
         RnsPoly(out.data[0], out.form, out.limb_ids),
         RnsPoly(out.data[1], out.form, out.limb_ids),
@@ -243,3 +283,25 @@ def to_mixed_radix(ctx: Context, data, limb_ids: Tuple[int, ...], k: int):
         y_i = ma.shoup_mul_lazy(diff, w_inv, hm.shoup(w_inv, qi), qi)
         ys.append(ma.reduce_strict(y_i, qi))
     return torch.stack(ys, dim=-2)
+
+
+# ---------------------------------------------------------------------------
+# Host-side exact compose/convert (the k -> 1 and oracle paths)
+# ---------------------------------------------------------------------------
+
+
+def compose_to_int(coeffs: np.ndarray, moduli) -> list:
+    """Host CRT compose of strict residues [L, n] -> centered Python ints."""
+    vals = hm.crt_compose([np.asarray(c) for c in coeffs], list(moduli))
+    Q = 1
+    for m in moduli:
+        Q *= int(m)
+    return [hm.to_signed(x, Q) for x in vals]
+
+
+def convert_to_single_host(coeffs: np.ndarray, moduli, new_modulus: int) -> np.ndarray:
+    """Host-exact k -> 1 base conversion with signed lift, in Python ints
+    (the JAX package's twin takes its C++ runtime where it is built, with
+    the same result)."""
+    ints = compose_to_int(coeffs, moduli)
+    return np.asarray([x % new_modulus for x in ints], dtype=np.uint32)

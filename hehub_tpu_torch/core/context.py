@@ -1,6 +1,6 @@
 """Parameter objects and the immutable precomputed-table Context (port of
-hehub_tpu/core/context.py, CKKS part: create_ckks_params,
-create_ckks_params_from_bit_lengths, Context).
+hehub_tpu/core/context.py: create_ckks_params,
+create_ckks_params_from_bit_lengths, create_bgv_params, Context).
 
 Tables are computed once, on the host, in numpy uint32 — bitwise equal to
 the JAX package's. Ops take them as device tensors through
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -68,6 +69,38 @@ class RlweParams:
 @dataclasses.dataclass(frozen=True)
 class CkksParams(RlweParams):
     initial_scaling_factor: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class BgvParams(RlweParams):
+    """BGV parameters: plaintext modulus t, any integer in [2, 2^58)
+    coprime to the ciphertext moduli.
+
+    SIMD slot packing additionally needs every prime factor of t to satisfy
+    t_i ≡ 1 (mod 2n); factors < 2^29 pack through the NTT kernels, larger
+    ones through the host big-prime NTT (hostmath.ntt_host_u64)."""
+
+    plain_modulus: int = 0
+
+    def __post_init__(self):
+        super().__post_init__()
+        t = self.plain_modulus
+        if not 2 <= t < (1 << 58):
+            raise ValueError(f"plain modulus {t} must be in [2, 2^58)")
+        for q in self.moduli + self.special_mods:
+            if math.gcd(t, q) != 1:
+                raise ValueError("plain modulus must be coprime with ct moduli")
+
+    @property
+    def plain_factors(self) -> Tuple[int, ...]:
+        """t as pairwise-coprime prime powers (the CRT basis for Z_t)."""
+        return hm.coprime_factors(self.plain_modulus)
+
+    @property
+    def simd_capable(self) -> bool:
+        """True when Z_t slots pack via per-factor negacyclic NTTs."""
+        n = self.dimension
+        return all(e == 1 and p % (2 * n) == 1 for p, e in hm.factorize(self.plain_modulus))
 
 
 # ~128-bit-security total log(Q·P) budgets per dimension (the
@@ -186,6 +219,42 @@ def create_ckks_params_from_bit_lengths(
     )
 
 
+def create_bgv_params(
+    dimension: int,
+    plain_bits: int = 17,
+    num_levels: int = 3,
+    num_special: int = 1,
+    plain_modulus: Optional[int] = None,
+    use_security_budget: bool = True,
+) -> BgvParams:
+    """BGV parameters: 30-bit ciphertext primes and a plaintext modulus, an
+    NTT prime of `plain_bits` bits by default, or any explicit
+    `plain_modulus` in [2, 2^58) coprime to the chain (composite, large
+    prime or non-NTT values all work; SIMD needs NTT-friendly factors).
+    The 128-bit-security log(QP) budget is enforced as for CKKS;
+    use_security_budget=False builds knowingly insecure test parameters."""
+    if use_security_budget:
+        budget = STD_LOGQP_BUDGET.get(dimension)
+        if budget is None:
+            raise ValueError(
+                f"no standard security budget for dimension {dimension}; "
+                "pass use_security_budget=False to opt out explicitly"
+            )
+        if 30 * (num_levels + num_special) > budget:
+            raise ValueError(
+                f"{num_levels} levels exceed the 128-bit-security budget "
+                f"({budget} bits) for dimension {dimension}"
+            )
+    primes = hm.gen_ntt_primes(30, num_levels + num_special, dimension)
+    t = plain_modulus or hm.gen_ntt_primes(plain_bits, 1, dimension)[0]
+    return BgvParams(
+        dimension=dimension,
+        moduli=tuple(primes[num_special:]),
+        special_mod=tuple(primes[:num_special]) if num_special != 1 else primes[0],
+        plain_modulus=int(t),
+    )
+
+
 def _bitrev_indices(n: int) -> np.ndarray:
     logn = n.bit_length() - 1
     idx = np.arange(n, dtype=np.uint32)
@@ -214,7 +283,8 @@ def _shoup_np(w: np.ndarray, q: int) -> np.ndarray:
 
 
 class ModulusTables:
-    """Per-modulus constants and twiddle tables for one prime q."""
+    """Per-modulus constants and twiddle tables for one prime q; `device_row`
+    hands out cached device copies shaped as one limb."""
 
     def __init__(self, q: int, n: int):
         self.q = U32(q)
@@ -236,6 +306,22 @@ class ModulusTables:
         self.tw_inv_last_sh = U32(hm.shoup(last, q))
         self.n_inv = U32(n_inv)
         self.n_inv_sh = U32(hm.shoup(n_inv, q))
+        self._device_cache: Dict[tuple, torch.Tensor] = {}
+
+    def device_row(self, name: str, device: torch.device,
+                   dtype: torch.dtype = torch.int64) -> torch.Tensor:
+        """Table `name` as the one limb of a context's rows ([1, n] for a
+        twiddle table, [1, 1] for a constant) on `device`, in the dtypes of
+        Context.device_rows. Cached on the tables."""
+        device = torch.device(device)
+        key = (name, str(device), dtype)
+        t = self._device_cache.get(key)
+        if t is None:
+            host = np.asarray(getattr(self, name), dtype=U32).reshape(1, -1)
+            host = host.view(np.int32) if dtype == torch.int32 else host.astype(np.int64)
+            t = torch.from_numpy(host).to(device=device)
+            self._device_cache[key] = t
+        return t
 
 
 class Context:
@@ -277,6 +363,19 @@ class Context:
             if isinstance(a, np.ndarray):
                 a.setflags(write=False)
         self._device_cache: Dict[tuple, torch.Tensor] = {}
+
+        # BGV: per-factor tables of the plaintext modulus t. A factor gets
+        # NTT tables when it is a prime ≡ 1 mod 2n below 2^29 (the kernels'
+        # lanes); larger NTT-friendly primes use the host u64 NTT
+        # (hostmath.ntt_host_u64); other factors have no SIMD packing.
+        self.plain_fact_tables: Optional[list] = None
+        if isinstance(params, BgvParams):
+            ftabs = []
+            for f in params.plain_factors:
+                (p, e), = hm.factorize(f)
+                ok = e == 1 and p % (2 * n) == 1 and p < (1 << 29)
+                ftabs.append(ModulusTables(p, n) if ok else None)
+            self.plain_fact_tables = ftabs
 
     def rows(self, name: str, limb_ids: Tuple[int, ...]) -> np.ndarray:
         """Host rows of table `name` for `limb_ids`."""

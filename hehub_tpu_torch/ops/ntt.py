@@ -91,23 +91,45 @@ def from_u32_bits(data: torch.Tensor) -> torch.Tensor:
     return data.to(torch.int64) & ma.MASK32
 
 
-def _transform(ctx, data, limb_ids, names, plain, kernel):
+def _transform(data, rows, names, plain, kernel):
+    """K1/K2 (`kernel`) for a CUDA tensor, the plain chain for a CPU one;
+    `rows(name, device, dtype)` gives the tables."""
     dev = data.device
     if dev.type == "cuda":
-        tabs = [ctx.device_rows(nm, limb_ids, dev, torch.int32) for nm in names]
-        return from_u32_bits(kernel(to_u32_bits(data), *tabs))
+        return from_u32_bits(kernel(to_u32_bits(data), *(rows(nm, dev, torch.int32)
+                                                         for nm in names)))
     if dev.type != "cpu":
         raise ValueError(f"no NTT for tensors on {dev}")
-    return plain(data, *(ctx.device_rows(nm, limb_ids, dev) for nm in names))
+    return plain(data, *(rows(nm, dev, torch.int64) for nm in names))
+
+
+def _limb_rows(ctx, limb_ids):
+    return lambda nm, dev, dtype: ctx.device_rows(nm, limb_ids, dev, dtype)
 
 
 def ntt(ctx, data, limb_ids: Tuple[int, ...]):
     """Forward NTT of [..., L, n] under the context limbs `limb_ids`: the
     K1 kernel for a CUDA tensor, the plain chain for a CPU tensor."""
-    return _transform(ctx, data, limb_ids, FWD_TABLES, ntt_fwd, kernels.ntt_fwd)
+    return _transform(data, _limb_rows(ctx, limb_ids), FWD_TABLES, ntt_fwd, kernels.ntt_fwd)
 
 
 def intt(ctx, data, limb_ids: Tuple[int, ...]):
     """Inverse NTT of [..., L, n] under the context limbs `limb_ids`: the
     K2 kernel for a CUDA tensor, the plain chain for a CPU tensor."""
-    return _transform(ctx, data, limb_ids, INV_TABLES, ntt_inv, kernels.ntt_inv)
+    return _transform(data, _limb_rows(ctx, limb_ids), INV_TABLES, ntt_inv, kernels.ntt_inv)
+
+
+def ntt_single(tables, data):
+    """Forward NTT of [..., n] under one ModulusTables (a modulus outside
+    the context's limbs, e.g. a factor of the BGV plain modulus): K1 on
+    [..., 1, n] with the tables as its one limb for a CUDA tensor, the
+    plain chain for a CPU tensor."""
+    out = _transform(data[..., None, :], tables.device_row, FWD_TABLES, ntt_fwd, kernels.ntt_fwd)
+    return out[..., 0, :]
+
+
+def intt_single(tables, data):
+    """Inverse NTT of [..., n] under one ModulusTables: K2 or the plain
+    chain, as ntt_single."""
+    out = _transform(data[..., None, :], tables.device_row, INV_TABLES, ntt_inv, kernels.ntt_inv)
+    return out[..., 0, :]

@@ -91,11 +91,12 @@ def rlwe_sample(
     gen: torch.Generator,
     limb_ids: Tuple[int, ...],
     batch_shape=(),
+    noise_scale: Optional[int] = None,
     debug_zero_c1: bool = False,
     debug_zero_e: bool = False,
 ) -> RlweCt:
-    """Fresh encryption of zero: (c0, c1) = (e - c1*s, c1). (The JAX twin's
-    BGV noise lift, `noise_scale`, waits for BGV.)"""
+    """Fresh encryption of zero: (c0, c1) = (e - c1*s, c1). `noise_scale`
+    multiplies both halves by a constant: the BGV noise lift by t."""
     dev = gen.device
     if debug_zero_c1:
         c1 = sampling.zero_poly(ctx, limb_ids, dev, batch_shape)
@@ -105,7 +106,11 @@ def rlwe_sample(
         e = sampling.zero_poly(ctx, limb_ids, dev, batch_shape)
     else:
         e = sampling.gaussian_poly(ctx, gen, limb_ids, batch_shape)
-    return RlweCt(rns.sub(ctx, e, mul_by_sk(ctx, c1, sk)), c1)
+    c0 = rns.sub(ctx, e, mul_by_sk(ctx, c1, sk))
+    if noise_scale is not None and noise_scale != 1:
+        c0 = rns.mul_scalar(ctx, c0, noise_scale)
+        c1 = rns.mul_scalar(ctx, c1, noise_scale)
+    return RlweCt(c0, c1)
 
 
 def encrypt_core(ctx: Context, pt: RnsPoly, sk: RlweSk, gen: torch.Generator, **dbg) -> RlweCt:

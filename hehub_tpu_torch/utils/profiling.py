@@ -55,10 +55,59 @@ def step_time(fn: Callable[[], object], warmup: int = 1, iters: int = 4) -> floa
 
 
 _OURS = "(anonymous namespace)::"
+# PyTorch kernels launched at the start of each trace, before the window
+# that is read: the profiler loses the first records of a trace (on an H100,
+# the first kernel of every trace after one of 30 000 launches, and up to 6
+# of 10 calls' kernels after a long run)
+_LEAD_IN_LAUNCHES = 200
+_WINDOW = "hehub_tpu_torch.profiling.window"
+
+
+class ProfilerFault(RuntimeError):
+    """The profiler's trace lost the records that a time is read from."""
 
 
 def _is_ours(name: str) -> bool:
     return name.removeprefix("void ").startswith(_OURS)
+
+
+def _window_spans(events) -> List[Tuple[float, float, str]]:
+    """(start µs, stop µs, name) of the device activities of a trace's
+    `events` that began inside its one host-side window. The window's
+    annotation on the device (a span over the window's kernels) is not an
+    activity."""
+    from torch.autograd import DeviceType
+
+    window = [e.time_range for e in events
+              if e.name == _WINDOW and e.device_type == DeviceType.CPU]
+    if len(window) != 1:
+        raise RuntimeError(f"the trace holds {len(window)} host-side windows, not 1")
+    lo, hi = window[0].start, window[0].end
+    return sorted(
+        (e.time_range.start, e.time_range.end, e.name) for e in events
+        if e.device_type == DeviceType.CUDA and e.name != _WINDOW
+        and lo <= e.time_range.start <= hi)
+
+
+def _traced_window(fn: Callable[[], object]):
+    """Trace `fn()` with torch.profiler after a lead-in of small PyTorch
+    kernels, inside a marked window that ends in a device sync. Returns the
+    host wall seconds of the window and the device activities (start µs,
+    stop µs, name) that began inside it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scratch = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(_LEAD_IN_LAUNCHES):
+            scratch.add_(1)
+        torch.cuda.synchronize()
+        with record_function(_WINDOW):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    return wall, _window_spans(prof.events())
 
 
 def _kernel_spans(fn: Callable[[], object], ours: bool, warmup: int,
@@ -69,29 +118,26 @@ def _kernel_spans(fn: Callable[[], object], ours: bool, warmup: int,
     trace without such a kernel is taken again (the profiler now and then
     records no device activity at all), twice at most; then this raises
     (the profiler cannot trace the card)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     _require_cuda()
     for _ in range(warmup):
         fn()
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
     for _ in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
         spans, seen = [], set()
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA or e.name.startswith(("Memcpy", "Memset")):
+        for start, stop, name in _traced_window(calls)[1]:
+            if name.startswith(("Memcpy", "Memset")):
                 continue
-            seen.add(e.name)
-            if _is_ours(e.name) == ours:
-                spans.append((e.name, e.time_range.end - e.time_range.start))
+            seen.add(name)
+            if _is_ours(name) == ours:
+                spans.append((name, stop - start))
         if spans:
             return spans
-    raise RuntimeError(f"the profiler trace holds no kernel of the call (ours={ours}); "
-                       f"kernels seen: {sorted(seen)}")
+    raise ProfilerFault(f"the profiler trace holds no kernel of the call (ours={ours}); "
+                        f"kernels seen: {sorted(seen)}")
 
 
 def kernel_time(fn: Callable[[], object], ours: bool, warmup: int = 2, iters: int = 10) -> float:
@@ -100,10 +146,10 @@ def kernel_time(fn: Callable[[], object], ours: bool, warmup: int = 2, iters: in
     after `warmup` calls: this package's kernels if `ours`, else the others
     (a library call's). Each kernel name adds its mean traced interval
     times its launches per call (its traced count over `iters`, rounded),
-    so that a record the profiler drops (it loses one now and then) biases
-    neither side of a comparison. A trace that lost more than half of a
-    kernel's records, or holds more than whole calls' worth, is taken
-    again, three times in all; then this raises."""
+    so that a record the profiler drops biases neither side of a
+    comparison. A trace that lost more than half of a kernel's records, or
+    holds more than whole calls' worth, is taken again, three times in all;
+    then this raises ProfilerFault."""
     for attempt in range(3):
         by_name: Dict[str, List[float]] = collections.defaultdict(list)
         for name, us in _kernel_spans(fn, ours, warmup if attempt == 0 else 0, iters):
@@ -117,7 +163,7 @@ def kernel_time(fn: Callable[[], object], ours: bool, warmup: int = 2, iters: in
             total += sum(durations) / len(durations) * per_call
         if fault is None:
             return total / 1e6
-    raise RuntimeError(f"{fault} in each of 3 traces")
+    raise ProfilerFault(f"{fault} in each of 3 traces")
 
 
 def _activity(name: str) -> str:
@@ -139,22 +185,10 @@ def device_trace(fn: Callable[[], object]) -> Dict[str, object]:
     split of the device time over copies, this package's kernels and
     PyTorch's kernels, as shares. Busy and idle are None when the trace
     holds no device activity (the profiler could not trace the card)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     _require_cuda()
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events()
-        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start
-    )
+    wall, spans = _traced_window(fn)
+    spans = [s for s in spans if s[1] > s[0]]
     if not spans:
         return dict(wall_ms=wall * 1e3, busy_ms=None, idle_share=None, split={})
     by_class: Dict[str, float] = collections.defaultdict(float)

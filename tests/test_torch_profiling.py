@@ -41,3 +41,77 @@ def test_kernel_time_retraces_a_trace_that_lost_most_records(monkeypatch):
     traces = iter([_trace([("ours", 40.0)], drop=range(6)), _trace([("ours", 30.0)])])
     monkeypatch.setattr(profiling, "_kernel_spans", lambda fn, ours, warmup, iters: next(traces))
     assert profiling.kernel_time(lambda: None, ours=True, iters=ITERS) == pytest.approx(30e-6)
+
+
+def test_kernel_time_fault_is_a_profiler_fault(monkeypatch):
+    """A trace that keeps losing records raises ProfilerFault, the one error
+    that a caller may record as a missing time."""
+    monkeypatch.setattr(profiling, "_kernel_spans", lambda fn, ours, warmup, iters:
+                        _trace([("ours", 40.0)], drop=range(6)))
+    with pytest.raises(profiling.ProfilerFault, match="4 launches of ours"):
+        profiling.kernel_time(lambda: None, ours=True, iters=ITERS)
+
+
+@pytest.mark.parametrize("key", ["kernel_ms", "library_kernel_ms"])
+def test_chip_smoke_records_a_lost_kernel_time_as_null(monkeypatch, key):
+    import chip_smoke
+
+    monkeypatch.setattr(chip_smoke, "kernel_time", lambda call, ours: 2.5e-5)
+    assert chip_smoke.kernel_only(None, True, key) == {key: pytest.approx(0.025)}
+
+    def lost(call, ours):
+        raise profiling.ProfilerFault("4 launches of k traced for 10 calls in each of 3 traces")
+
+    monkeypatch.setattr(chip_smoke, "kernel_time", lost)
+    fault = key.replace("_ms", "_profiler_fault")
+    assert chip_smoke.kernel_only(None, True, key) == {
+        key: None, fault: "4 launches of k traced for 10 calls in each of 3 traces"}
+    assert chip_smoke.ratio(None, 1.0) is None
+
+
+def test_chip_smoke_lets_other_kernel_time_errors_through(monkeypatch):
+    """Only a lost trace becomes a null time; any other error stops the run."""
+    import chip_smoke
+
+    def broken(call, ours):
+        raise RuntimeError("launch failed")
+
+    monkeypatch.setattr(chip_smoke, "kernel_time", broken)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        chip_smoke.kernel_only(None)
+
+
+def _event(name, device, start, end):
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    return SimpleNamespace(name=name, device_type=getattr(DeviceType, device),
+                           time_range=SimpleNamespace(start=start, end=end))
+
+
+def test_window_spans_keep_the_device_work_of_the_window_only():
+    """Lead-in kernels before the window are left out, and so is the
+    window's own annotation on the device, which spans its kernels."""
+    w = profiling._WINDOW
+    events = [
+        _event("lead_in_add", "CUDA", 5.0, 6.0),
+        _event(w, "CPU", 100.0, 200.0),
+        _event(w, "CUDA", 110.0, 190.0),
+        _event("void (anonymous namespace)::k", "CUDA", 120.0, 130.0),
+        _event("Memcpy DtoH", "CUDA", 140.0, 150.0),
+        _event("cudaLaunchKernel", "CPU", 115.0, 116.0),
+    ]
+    assert profiling._window_spans(events) == [
+        (120.0, 130.0, "void (anonymous namespace)::k"), (140.0, 150.0, "Memcpy DtoH")]
+
+
+@pytest.mark.parametrize("windows", [0, 2])
+def test_window_spans_refuse_a_trace_without_one_window(windows):
+    """A trace without exactly one host-side window is a fault of the
+    instrument, not lost records: it raises RuntimeError, not
+    ProfilerFault."""
+    events = [_event(profiling._WINDOW, "CPU", 100.0 * i, 100.0 * i + 50) for i in range(windows)]
+    with pytest.raises(RuntimeError, match=f"{windows} host-side windows") as err:
+        profiling._window_spans(events)
+    assert not isinstance(err.value, profiling.ProfilerFault)

@@ -55,8 +55,9 @@ def ext_prod_case(n, num_levels, num_special, R, device, seed):
 
 def jit_reference_ops(mp):
     """Run hehub_tpu's NTTs, external products, key-switch digits and
-    special-prime divisions under jax.jit, one compiled function per
-    (operation, limbs, shape), for the rest of the monkeypatch context `mp`.
+    special-prime divisions (both flavours) under jax.jit, one compiled
+    function per (operation, limbs, shape), for the rest of the monkeypatch
+    context `mp`.
 
     Called eagerly, as the circuits call them, each of them compiles every
     primitive of its stage chains anew at each level (about 10 s a level at
@@ -91,10 +92,10 @@ def jit_reference_ops(mp):
     div = basecnv.div_last_rounded_pair
 
     def div_pair(ctx, a, b, plain_modulus=None, restore_plain_scale=True):
-        if plain_modulus is not None:
-            return div(ctx, a, b, plain_modulus, restore_plain_scale)
-        f = cached(("div", id(ctx), a.form, a.limb_ids, a.data.shape), lambda: lambda x, y: div(
-            ctx, RnsPoly(x, a.form, a.limb_ids), RnsPoly(y, a.form, a.limb_ids)))
+        f = cached(("div", id(ctx), a.form, a.limb_ids, a.data.shape, plain_modulus,
+                    restore_plain_scale), lambda: lambda x, y: div(
+            ctx, RnsPoly(x, a.form, a.limb_ids), RnsPoly(y, a.form, a.limb_ids), plain_modulus,
+            restore_plain_scale))
         return f(a.data, b.data)
 
     mp.setattr(basecnv, "div_last_rounded_pair", div_pair)
