@@ -2,8 +2,9 @@
 """Smoke run of hehub_tpu_torch on one NVIDIA card (H100): builds the CUDA
 kernels, holds each against its plain PyTorch version at the shapes of the
 paths that run it, then drives the CKKS main path, the hybrid
-key-switching path, the small-ring path, the circuits path, BGV and the
-bootstrapped TFHE NAND end to end and checks their results.
+key-switching path, the small-ring path, the circuits path, BGV, the
+bootstrapped TFHE NAND and the CKKS bootstrap end to end and checks their
+results.
 
     python3 chip_smoke.py
 
@@ -80,13 +81,28 @@ Phases, each printing its own lines:
      those shapes, as in phase 3); 1 gate replayed on the CPU bitwise,
      its blind rotation too; per-gate time (tfhe_gate_ms,
      tfhe_gates_per_sec); last, traces of 8 CMUX steps and of one NAND;
-  10. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
+  10. CKKS bootstrapping at bench.py's bench_bootstrap(n=4096): 28+3 limbs
+     of 30 bits (Δ ≈ 2^60), keys made on the card (sparse secret, alpha=1,
+     the 52 rotation keys of the 3-stage factored transforms),
+     Bootstrapper(k_bound=5, degree=63, arcsine=True, lt_stages=3) and
+     CompiledBootstrapper(split=True) (CUDA graphs); the eager and the
+     captured refresh of one ciphertext and of a batch of 8 (v uniform in
+     [-1, 1]^2048 at Δ_in = 2^26 on one limb), bitwise equal and decoded
+     within 1e-3 of v; K1, K2, K3 and K5 must have launched; a second eager
+     refresh adds no plan; mod_raise and the first CoeffToSlot pair
+     replayed on the CPU bitwise; K1/K2 at every row count of one eager
+     refresh, K3 at its largest launch and K5 on [D, 2048], timed as in
+     phase 3; CUDA-event times of the whole refresh, its four stages and
+     the batch-8 refresh, eager and captured; traces of one eager and one
+     captured refresh;
+  11. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
      `launch_weighted_kernel_ms`; then the five small-ring records
      `*_small_n` / `fft_small_m`, whose launches are the small-ring
      paths'; then `ntt_fwd_tfhe` / `ntt_inv_tfhe`, whose launches are the
-     TFHE path's); the card line; last, the result line {"ok": true,
-     "device": {...}}.
+     TFHE path's; then `ntt_fwd_boot`, `ntt_inv_boot`, `ext_prod_boot`,
+     `fft_boot`, whose launches are phase 10's); the card line; last, the
+     result line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
 A kernel-only time is read from a window of the profiler's trace that
@@ -96,6 +112,7 @@ the fault beside it (`*_profiler_fault`), and fails no check unless more
 than half of the `kernels` line's records lack it.
 """
 
+import copy
 import functools
 import json
 import subprocess
@@ -106,6 +123,7 @@ import numpy as np
 import torch
 
 from hehub_tpu_torch import config, kernels
+from hehub_tpu_torch.circuits import bootstrap as bs
 from hehub_tpu_torch.circuits import linear_algebra as la
 from hehub_tpu_torch.circuits import poly_eval as pe
 from hehub_tpu_torch.core.context import create_bgv_params, create_ckks_params, make_context
@@ -178,6 +196,20 @@ BGV_REPLAY_ROWS = 2
 # on the CPU (740 CMUX steps each), CMUX steps in the short trace
 TFHE_REPLAY_GATES = 1
 TFHE_TRACE_STEPS = 8
+# Phase 10, CKKS bootstrapping at bench.py's bench_bootstrap(n=4096): 28
+# limbs and 3 special primes of 30 bits, Δ = q1·q2, the factored transforms
+# in 3 stages, EvalMod of degree 63 over |I| <= 5 with the arcsine cubic,
+# Δ_in = 2^26; the batch of the second call; the bound on the decoded slots
+# against v that tests/test_bootstrap.py:169-170 cites
+BOOT_N = 4096
+BOOT_LEVELS = 28
+BOOT_SPECIAL = 3
+BOOT_LT_STAGES = 3
+BOOT_DEGREE = 63
+BOOT_K_BOUND = 5
+BOOT_D_IN = 2.0**26
+BOOT_BATCH = 8
+MAX_ERR_BOOT = 1e-3
 
 # Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
 HBM_BYTES_PER_S = 3.35e12  # data sheet
@@ -462,12 +494,14 @@ def summarize(records):
 
 def ntt_row_sweep(hctx, dev, path_rows):
     """Phase 3, second part, run after phases 4 and 5 because their records
-    give its shapes: K1 and K2 at n=N at every row count the paths launched
-    them with ([rows / L, L, N], the rows spread over as many of the hybrid
-    context's 14 limbs as divide them), each bitwise against its plain
-    chain, then timed per call (CUDA events) and kernel-only. Returns
+    give its shapes: K1 and K2 at the context's n (N, or the bootstrap's
+    ring in phase 10) at every row count the paths launched them with
+    ([rows / L, L, n], the rows spread over as many of the context's limbs
+    as divide them: 14 for the hybrid context), each bitwise against its
+    plain chain, then timed per call (CUDA events) and kernel-only. Returns
     {kernel: {rows: record}}."""
     ids_all = tuple(range(len(hctx.params.moduli))) + hctx.special_indices
+    N = hctx.params.dimension
     gen = torch.Generator(device=dev).manual_seed(3)
     out = {}
     for kind, names, plain, launch in (
@@ -527,6 +561,12 @@ def _rows_on_cpu(ct, rows):
 
 def _key_on_cpu(k):
     return rgsw_mod.RgswCt(k.data.cpu(), k.limb_ids, k.alpha)
+
+
+def _same_ct(a, b):
+    """Bitwise equal ciphertexts, limbs and scales."""
+    return (a.limb_ids == b.limb_ids and a.scaling_factor == b.scaling_factor
+            and torch.equal(a.c0.data, b.c0.data) and torch.equal(a.c1.data, b.c1.data))
 
 
 def _decode_on_cpu(ctx, params, ct, sk):
@@ -1270,6 +1310,276 @@ def tfhe_path(dev):
     return launches, records, gate_rows, traces
 
 
+def _boot_keys_on_cpu(booter, plans):
+    """The rotation keys that `plans` need (their babies and giants), on
+    the CPU."""
+    s = plans[0].slot_count
+    steps = set()
+    for p in plans:
+        for g, b in p.pts:
+            steps |= {(-b) % s} if b else set()
+            steps |= {(-g * p.B) % s} if g else set()
+    return {st: _key_on_cpu(booter.rot_keys[st]) for st in sorted(steps)}
+
+
+def _plan_on_cpu(plan):
+    cpu = copy.copy(plan)
+    cpu.pts = {gb: RnsPoly(pt.data.cpu(), pt.form, pt.limb_ids) for gb, pt in plan.pts.items()}
+    return cpu
+
+
+def _boot_ct_on_cpu(ct):
+    return ckks.CkksCt(*(RnsPoly(p.data.cpu(), p.form, p.limb_ids) for p in (ct.c0, ct.c1)),
+                       ct.scaling_factor)
+
+
+def boot_cpu_replay(booter, ct):
+    """mod_raise and the first CoeffToSlot pair (c2sR0, c2sI0 under one
+    set of hoisted babies) of the batch-1 ciphertext, on the card and on
+    the CPU through the plain versions, with the card's keys and plan
+    plaintexts (a strict CPU Bootstrapper: no plan is encoded there)."""
+    ctx, params = booter.ctx, booter.params
+    c2s_r, c2s_im, _, _ = bs._merged_chain_matrices(params.dimension, booter.lt_stages)
+    raised = bs.mod_raise(ctx, ct)
+    target = raised.scaling_factor * booter._balanced_pt_scale(raised, len(c2s_r))
+    specs = (("c2sR0", c2s_r[0]), ("c2sI0", c2s_im[0]))
+    card = booter._lt_pair(*specs, raised, target)
+    plans = [booter._plan(name, M, raised, target) for name, M in specs]
+    t0 = time.perf_counter()
+    cpu = bs.Bootstrapper(ctx, params, None, _boot_keys_on_cpu(booter, plans), None,
+                          booter.k_bound, booter.degree, booter.arcsine, booter.double_angle,
+                          booter.lt_stages)
+    for (name, M), plan in zip(specs, plans):
+        cpu._plans[(name, raised.c0.limb_count, raised.scaling_factor, target)] = _plan_on_cpu(plan)
+    cpu._strict = True
+    raised_c = bs.mod_raise(ctx, _boot_ct_on_cpu(ct))
+    got = cpu._lt_pair(*specs, raised_c, target)
+    seconds = time.perf_counter() - t0
+    for tag, c, k in (("mod_raise", raised_c, raised), ("c2sR0", got[0], card[0]),
+                      ("c2sI0", got[1], card[1])):
+        check(c.limb_ids == k.limb_ids and c.scaling_factor == k.scaling_factor
+              and torch.equal(c.c0.data, k.c0.data.cpu())
+              and torch.equal(c.c1.data, k.c1.data.cpu()),
+              f"bootstrap: the card's {tag} differs from the plain CPU path")
+    print(f"[bootstrap] plain CPU replay of mod_raise and the first CoeffToSlot pair (c2sR0 with "
+          f"{len(plans[0].pts)} diagonals, c2sI0 with {len(plans[1].pts)}, shared hoisted "
+          f"babies; the card's keys and plan plaintexts) on the batch-1 ciphertext: bitwise equal "
+          f"to the card's ({seconds:.1f} s on the CPU)")
+
+
+def _decode_err(ctx, params, out, sk, v):
+    got = ckks.decode(ckks.decrypt(ctx, out, sk), params).real
+    check(got.shape == v.shape and bool(np.isfinite(got).all()),
+          f"bootstrap: decoded shape {got.shape} or values not finite")
+    return float(np.abs(got - v).max())
+
+
+def boot_kernel_records(ctx, dev, booter, refresh_rows):
+    """K1/K2 at every row count of one eager batch-1 refresh (the phase 3
+    row sweep at n=4096, 31 limbs), each record's main numbers at its most
+    launched row count; K3 at the refresh's largest launch (R=8 of the
+    batch-8 call, l=28 digits, L_ext=31); K5 on [D, 2048] at the most
+    diagonals of a plan that took the device codec; each bitwise against
+    its plain version, timed as in phase 3."""
+    sweep = ntt_row_sweep(ctx, dev, (refresh_rows,))
+    n = ctx.params.dimension
+    ids_all = tuple(range(len(ctx.params.moduli))) + ctx.special_indices
+    records = {}
+    for kind, names, plain in (("ntt_fwd", nttmod.FWD_TABLES, nttmod.ntt_fwd),
+                               ("ntt_inv", nttmod.INV_TABLES, nttmod.ntt_inv)):
+        rows = max(refresh_rows[kind], key=lambda r: (refresh_rows[kind][r], r))
+        rec = dict(sweep[kind][rows])
+        ids = ids_all[:rec["limbs"]]
+        x = lazy_residues(torch.Generator(device=dev).manual_seed(4),
+                          (rows // rec["limbs"], rec["limbs"], n), ctx.device_rows("two_q", ids, dev))
+        t64 = [ctx.device_rows(nm, ids, dev) for nm in names]
+        records[f"{kind}_boot"] = dict(
+            **origin(kind), match="bitwise vs plain at every row count", max_abs_err=0,
+            shape=f"[{rows // rec['limbs']}, {rec['limbs']}, {n}]", **rec,
+            plain_ms=device_time(lambda: plain(x, *t64), 1, 3) * 1e3, library_ms=None,
+            by_rows=[dict(rows=r, launches_refresh=refresh_rows[kind].get(r, 0), **v)
+                     for r, v in sweep[kind].items()],
+            launch_weighted_kernel_ms=weighted_ms(refresh_rows[kind], sweep[kind]))
+        del x
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    R, l = BOOT_BATCH, len(ctx.params.moduli)
+    ids_ext = booter.rlk.limb_ids
+    L_ext = len(ids_ext)
+    digits = torch.stack([torch.randint(0, m, (R, n), generator=gen, device=dev)
+                          for m in ctx.moduli_of(ids_all[:l])], dim=1)
+    ext32 = ext_tables(ctx, ids_ext, dev)
+    d32, key32 = nttmod.to_u32_bits(digits), nttmod.to_u32_bits(booter.rlk.data[:l])
+    got = nttmod.from_u32_bits(kernels.ext_prod(d32, key32, *ext32))
+    want = plain_ext_prod(ctx, digits, booter.rlk)
+    records["ext_prod_boot"] = dict(
+        **origin("ext_prod"), match="bitwise", shape=f"R={R}, l={l}, L_ext={L_ext}, n={n}",
+        max_abs_err=max(int((got[0] - want.c0.data).abs().max()),
+                        int((got[1] - want.c1.data).abs().max())),
+        **timed(lambda: kernels.ext_prod(d32, key32, *ext32)),
+        plain_ms=device_time(lambda: plain_ext_prod(ctx, digits, booter.rlk), 1, 3) * 1e3,
+        library_ms=None,
+        **bound(4 * (d32.numel() + key32.numel() + 2 * R * L_ext * n),
+                ntt_ops(R * l * L_ext, n) + R * l * L_ext * n * 2 * CONTRACT_OPS, INT32_PER_S))
+    del digits, d32, key32, got, want
+
+    device_plans = [p for p in booter._plans.values() if p.codec == "device"]
+    check(device_plans, "bootstrap: no plan took the device codec (K5)")
+    D, m = max(len(p.pts) for p in device_plans), n // 2
+    tw = fftmod._device_tables(m, str(dev))
+    re, im = (torch.rand((D, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+              for _ in range(2))
+    got, want = kernels.fft(re, im, *tw), fftmod.fft_plain(re, im, m)
+    natural = torch.complex(re, im)
+    records["fft_boot"] = dict(
+        **origin("fft"), match="bitwise vs plain", shape=f"[{D}, {m}]",
+        max_abs_err=max(float((got[0] - want[0]).abs().max()),
+                        float((got[1] - want[1]).abs().max())),
+        **timed(lambda: kernels.fft(re, im, *tw)),
+        plain_ms=device_time(lambda: fftmod.fft_plain(re, im, m), 1, 3) * 1e3,
+        library_ms=device_time(lambda: torch.fft.fft(natural)) * 1e3,
+        **kernel_only(lambda: torch.fft.fft(natural), False, "library_kernel_ms"),
+        **bound(4 * re.numel() * 8 + 2 * tw[0].numel() * 8,
+                D * (m // 2) * (m.bit_length() - 1) * FFT_BUTTERFLY_FLOPS, FP64_PER_S))
+    summarize(records)
+    return records
+
+
+def bootstrap_path(dev):
+    """Phase 10: CKKS bootstrapping at bench.py's bench_bootstrap(n=4096):
+    make_boot_params(4096, 28, num_special=3) (Δ = q1·q2 ≈ 2^60), a sparse
+    secret (h=8), alpha=1 relinearization and conjugation keys and the 52
+    rotation keys of the three-stage factored transforms, made on the card;
+    Bootstrapper(k_bound=5, degree=63, arcsine=True, lt_stages=3) and
+    CompiledBootstrapper(split=True); v uniform in [-1, 1]^2048 at Δ_in =
+    2^26 on one limb. The eager and the captured refresh of one ciphertext
+    and of a batch of 8, decoded within MAX_ERR_BOOT of v, bitwise equal;
+    K1, K2, K3 and K5 launched; the launches of one eager refresh; a CPU
+    replay of mod_raise and the first CoeffToSlot pair; the kernels at the
+    refresh's shapes; then CUDA-event times (whole refresh, per stage, per
+    ciphertext at batch 8) and traces of one eager and one captured refresh.
+    Returns (launch counts of the phase, the `*_boot` kernel records)."""
+    params = bs.make_boot_params(BOOT_N, BOOT_LEVELS, num_special=BOOT_SPECIAL)
+    ctx = make_context(params)
+    slots = BOOT_N // 2
+    v = np.random.default_rng(3).uniform(-1, 1, slots)
+    v8 = np.random.default_rng(4).uniform(-1, 1, (BOOT_BATCH, slots))
+    gen = torch.Generator(device=dev).manual_seed(51)
+    print(f"[bootstrap] n={BOOT_N} L={BOOT_LEVELS}+{BOOT_SPECIAL}, log2 Δ = "
+          f"{np.log2(params.initial_scaling_factor):.4f}, Δ_in = 2^{np.log2(BOOT_D_IN):.0f}, "
+          f"degree {BOOT_DEGREE}, arcsine, lt_stages={BOOT_LT_STAGES}")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_phase = t0 = time.perf_counter()
+    sk = rlwe_mod.keygen(ctx, gen, hamming_weight=8)
+    rlk = keys_mod.relin_key(ctx, sk, gen)
+    rks = {st: keys_mod.rot_key(ctx, sk, st, gen)
+           for st in bs.bootstrap_rotation_steps(params, BOOT_LT_STAGES)}
+    ck = keys_mod.conj_key(ctx, sk, gen)
+    enc = lambda x: ckks.encrypt(ctx, ckks.encode(x, params, scaling_factor=BOOT_D_IN,  # noqa: E731
+                                                  level=BOOT_LEVELS - 1, device=dev), sk, gen)
+    ct, ct8 = enc(v), enc(v8)
+    torch.cuda.synchronize()
+    t_keys = time.perf_counter() - t0
+    booter = bs.Bootstrapper(ctx, params, rlk, rks, ck, k_bound=BOOT_K_BOUND, degree=BOOT_DEGREE,
+                             arcsine=True, lt_stages=BOOT_LT_STAGES)
+    t0 = time.perf_counter()
+    refresh = bs.CompiledBootstrapper(booter, ct, split=True)
+    t_compiled = time.perf_counter() - t0
+    key_bytes = sum(k.data.numel() * 8 for k in (rlk, ck, *rks.values()))
+    plan_bytes = sum(pt.data.numel() * 8 for p in booter._plans.values() for pt in p.pts.values())
+    print(f"[bootstrap] keygen + {len(rks)} rotation keys + encrypt {t_keys:.3f} s, keys "
+          f"{key_bytes / 1e9:.3f} GB as int64; CompiledBootstrapper(split=True) {t_compiled:.3f} s "
+          f"{json.dumps(refresh.timings)}; {len(booter._plans)} plans, {plan_bytes / 1e9:.3f} GB, "
+          f"{len(booter._consts.pts)} constant plaintexts")
+    print("[bootstrap] plans (name, limbs): diagonals, codec: " + json.dumps(
+        {f"{k[0]} L{k[1]}": f"{len(p.pts)}, {p.codec}" for k, p in booter._plans.items()}))
+
+    n_plans = len(booter._plans)
+    eager = booter(ct)
+    captured = refresh(ct)
+    check(len(booter._plans) == n_plans, "bootstrap: a second eager refresh added a plan")
+    check(_same_ct(captured, eager), "bootstrap: the captured refresh differs from the eager one")
+    check(eager.c0.limb_count >= 3, f"bootstrap: {eager.c0.limb_count} limbs after the refresh")
+    err = _decode_err(ctx, params, eager, sk, v)
+    check(err <= MAX_ERR_BOOT, f"bootstrap: decode error {err} above {MAX_ERR_BOOT}")
+    t0 = time.perf_counter()
+    refresh8 = bs.CompiledBootstrapper(booter, ct8, split=True)
+    t_compiled8 = time.perf_counter() - t0
+    eager8 = booter(ct8)
+    captured8 = refresh8(ct8)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    check(_same_ct(captured8, eager8), "bootstrap: the captured batch-8 refresh differs from eager")
+    err8 = _decode_err(ctx, params, eager8, sk, v8)
+    check(err8 <= MAX_ERR_BOOT, f"bootstrap: batch-8 decode error {err8} above {MAX_ERR_BOOT}")
+    for name in ("ntt_fwd", "ntt_inv", "ext_prod", "fft"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the bootstrap path")
+    print(f"[bootstrap] refresh: {eager.c0.limb_count} limbs out, scale 2^"
+          f"{np.log2(eager.scaling_factor):.4f}; captured == eager bitwise (batch 1 and 8); max|"
+          f"decoded - v| {err:.3e} (batch 1), {err8:.3e} (batch 8, every row), bound "
+          f"{MAX_ERR_BOOT}; batch-8 CompiledBootstrapper {t_compiled8:.3f} s "
+          f"{json.dumps(refresh8.timings)}; launches of the phase {json.dumps(launches)}")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    booter(ct)
+    torch.cuda.synchronize()
+    refresh_launches = dict(kernels.LAUNCHES)
+    refresh_rows = {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS}
+    print(f"[bootstrap] launches of one eager batch-1 refresh {json.dumps(refresh_launches)}; "
+          f"K1/K2 by rows {{rows: launches}}: {json.dumps(refresh_rows)}")
+    seconds = dict(drive=time.perf_counter() - t_phase)
+    t0 = time.perf_counter()
+    boot_cpu_replay(booter, ct)
+    seconds["cpu_replay"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records = boot_kernel_records(ctx, dev, booter, refresh_rows)
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    fa, fb_re, fb_im, fc = (f for _, f in refresh.stage_fns())
+    a = fa(ct.c0.data, ct.c1.data)
+    wre, wim = fb_re(*a[:2]), fb_im(*a[2:])
+    z_re, z_im = booter.coeff_to_slot(bs.mod_raise(ctx, ct))
+    w_re, w_im = booter.eval_mod(z_re), booter.eval_mod(z_im)
+    metrics = dict(
+        ckks_bootstrap_ms_per_refresh=device_time(lambda: refresh(ct), 1, 5) * 1e3,
+        bootstrap_c2s_ms=device_time(lambda: fa(ct.c0.data, ct.c1.data), 1, 5) * 1e3,
+        bootstrap_evalmod_re_ms=device_time(lambda: fb_re(*a[:2]), 1, 5) * 1e3,
+        bootstrap_evalmod_im_ms=device_time(lambda: fb_im(*a[2:]), 1, 5) * 1e3,
+        bootstrap_s2c_ms=device_time(lambda: fc(*wre, *wim), 1, 5) * 1e3,
+        ckks_bootstrap_ms_per_ct_batch8=device_time(lambda: refresh8(ct8), 1, 3) * 1e3 / BOOT_BATCH,
+        # the eager calls are warm (every plan and constant made) and take
+        # seconds each: fewer of them
+        ckks_bootstrap_eager_ms_per_refresh=device_time(lambda: booter(ct), 0, 2) * 1e3,
+        bootstrap_c2s_eager_ms=device_time(
+            lambda: booter.coeff_to_slot(bs.mod_raise(ctx, ct)), 0, 1) * 1e3,
+        bootstrap_evalmod_re_eager_ms=device_time(lambda: booter.eval_mod(z_re), 0, 1) * 1e3,
+        bootstrap_evalmod_im_eager_ms=device_time(lambda: booter.eval_mod(z_im), 0, 1) * 1e3,
+        bootstrap_s2c_eager_ms=device_time(lambda: booter.slot_to_coeff(w_re, w_im), 0, 1) * 1e3,
+        ckks_bootstrap_eager_ms_per_ct_batch8=device_time(lambda: booter(ct8), 0, 1) * 1e3
+        / BOOT_BATCH,
+        ckks_bootstrap_eager_host_ms_per_refresh=step_time(lambda: booter(ct), 0, 1) * 1e3,
+        bootstrap_max_abs_err=err, bootstrap_max_abs_err_batch8=err8,
+    )
+    print(f"[bootstrap] times (CUDA events; captured: CUDA graphs, *_eager: the eager "
+          f"Bootstrapper; *_host: host clock), {card_line()}: {json.dumps(metrics)}")
+    seconds["times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for tag, fn in (("eager", lambda: booter(ct)), ("captured", lambda: refresh(ct))):
+        trace = device_trace(fn)
+        print(f"[bootstrap] torch.profiler trace of one {tag} batch-1 refresh: {json.dumps(trace)}")
+    # a replay passes no wrapper: its kernels show only in the trace
+    for name in ("ntt_fwd_kernel", "ntt_inv_kernel", "ext_prod_kernel"):
+        check(trace["busy_ms"] is None or trace["launches"].get(name, 0) > 0,
+              f"bootstrap: the captured refresh's trace holds no {name}")
+    seconds["traces"] = time.perf_counter() - t0
+    print(f"[bootstrap] seconds of the phase (host clock): {json.dumps(seconds)}")
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1313,6 +1623,8 @@ def main() -> int:
     bgv_timings()
     del circuit_timings, bgv_timings
     torch.cuda.empty_cache()
+    boot_launches, boot_records = bootstrap_path(dev)
+    torch.cuda.empty_cache()
     by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches,
                "bgv": bgv_launches}
     for k, rec in records.items():
@@ -1339,6 +1651,12 @@ def main() -> int:
         rec["nand_launches_by_rows"] = tfhe_gate_rows[kind]
         check(rec["launches"] > 0, f"kernel {name} was not launched on the TFHE path")
     records.update(tfhe_records)
+    for name, rec in boot_records.items():
+        kind = name.rsplit("_boot", 1)[0]
+        rec["launches"] = boot_launches[kind]
+        rec["launches_by_path"] = {"bootstrap": boot_launches[kind]}
+        check(rec["launches"] > 0, f"kernel {name} was not launched on the bootstrap path")
+    records.update(boot_records)
     lost = [k for k, rec in records.items() if rec["kernel_ms"] is None]
     check(2 * len(lost) <= len(records),
           f"the profiler gave no kernel-only time for {lost}: the instrument, not a dropped record")

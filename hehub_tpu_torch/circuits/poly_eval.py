@@ -22,9 +22,13 @@ from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
 
 
 def _constant(params: CkksParams, value: float, scale: float, limb_count: int,
-              ct: ckks.CkksCt) -> ckks.CkksPt:
+              ct: ckks.CkksCt, consts=None) -> ckks.CkksPt:
     """`value` in every slot at `scale`, over the first `limb_count` limbs,
-    on the device of `ct`."""
+    on the device of `ct`: taken from `consts` (a memo of constant
+    plaintexts, circuits/bootstrap.ConstantPlaintexts) when given, else
+    encoded anew."""
+    if consts is not None:
+        return consts(value, scale, limb_count, ct.c0.data.device)
     return ckks.encode(np.full(params.dimension // 2, value), params, scaling_factor=scale,
                        level=len(params.moduli) - limb_count, device=ct.c0.data.device)
 
@@ -61,10 +65,11 @@ def power_basis(ctx: Context, ct: ckks.CkksCt, degree: int,
 
 
 def poly_eval(ctx: Context, params: CkksParams, ct: ckks.CkksCt, coeffs: Sequence[float],
-              rlk: rgsw_mod.RgswCt) -> ckks.CkksCt:
+              rlk: rgsw_mod.RgswCt, consts=None) -> ckks.CkksCt:
     """p(x) = coeffs[0] + coeffs[1]·x + ...: every term c_i·x^i at the
     level of the deepest power and at the common scale Δ·q_drop, so that
-    the adds are exact and the closing rescale lands at Δ."""
+    the adds are exact and the closing rescale lands at Δ. `consts`: as
+    _constant's."""
     coeffs = list(coeffs)
     if len(coeffs) < 2:
         raise ValueError("need degree >= 1 (use add_plain for constants)")
@@ -80,11 +85,11 @@ def poly_eval(ctx: Context, params: CkksParams, ct: ckks.CkksCt, coeffs: Sequenc
         if coeffs[i] == 0.0:
             continue
         p_i = align_level(ctx, powers[i], lvl)
-        pt = _constant(params, coeffs[i], target / p_i.scaling_factor, lvl, ct)
+        pt = _constant(params, coeffs[i], target / p_i.scaling_factor, lvl, ct, consts)
         term = ckks.mult_plain(ctx, p_i, pt)
         acc = term if acc is None else ckks.add(ctx, acc, term)
     if coeffs[0] != 0.0:
-        acc = ckks.add_plain(ctx, acc, _constant(params, coeffs[0], target, lvl, ct))
+        acc = ckks.add_plain(ctx, acc, _constant(params, coeffs[0], target, lvl, ct, consts))
     return ckks.rescale(ctx, acc)
 
 

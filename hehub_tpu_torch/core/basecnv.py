@@ -247,9 +247,16 @@ def decompose_balanced(ctx: Context, digits: torch.Tensor, ids: Tuple[int, ...])
     for i in range(1, NUM_DIGITS):
         w, w_sh = shoup_constants(ctx, [(1 << (DIGIT_BITS * i)) % m for m in mods], ids, dev)
         r = ma.add_lazy(r, ma.shoup_mul_lazy(biased[..., i : i + 1, :], w, w_sh, q), two_q)
-    off = C * (1 + (1 << DIGIT_BITS) + (1 << (2 * DIGIT_BITS)))
-    neg_off = torch.tensor([(-off) % m for m in mods], dtype=torch.int64, device=dev)[:, None]
-    return RnsPoly(ma.add_lazy(r, neg_off, two_q), COEFF, ids)
+    return RnsPoly(ma.add_lazy(r, _balanced_offset(ctx, ids, str(dev)), two_q), COEFF, ids)
+
+
+@functools.lru_cache(maxsize=None)
+def _balanced_offset(ctx: Context, ids: Tuple[int, ...], device: str) -> torch.Tensor:
+    """−OFF mod q_j [L, 1] on `device` for decompose_balanced, with OFF =
+    2^22·(1 + 2^22 + 2^44) the bias of its three digits."""
+    off = (1 << DIGIT_BITS) * (1 + (1 << DIGIT_BITS) + (1 << (2 * DIGIT_BITS)))
+    return torch.tensor([(-off) % m for m in ctx.moduli_of(ids)], dtype=torch.int64,
+                        device=device)[:, None]
 
 
 def to_mixed_radix(ctx: Context, data, limb_ids: Tuple[int, ...], k: int):

@@ -9,6 +9,7 @@ changes are slices.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -96,11 +97,18 @@ def mul(ctx, a: RnsPoly, b: RnsPoly) -> RnsPoly:
 
 def shoup_constants(ctx, scalars, limb_ids, device):
     """Per-limb host constants (one int per limb, or one int for all) ->
-    (w, w_shoup) [L, 1] int64 tensors on `device`."""
-    mods = ctx.moduli_of(limb_ids)
+    (w, w_shoup) [L, 1] int64 tensors on `device`, made once per (scalars,
+    limbs, device) and shared by every caller, which only reads them: a
+    call copies nothing to the device after the first."""
     if isinstance(scalars, (int, np.integer)):
         scalars = [int(scalars)] * len(limb_ids)
-    w, w_sh = hm.shoup_pair_arrays(scalars, mods)
+    return _shoup_constants(ctx, tuple(int(x) for x in scalars), tuple(limb_ids),
+                            str(torch.device(device)))
+
+
+@functools.lru_cache(maxsize=None)
+def _shoup_constants(ctx, scalars: Tuple[int, ...], limb_ids: Tuple[int, ...], device: str):
+    w, w_sh = hm.shoup_pair_arrays(list(scalars), ctx.moduli_of(limb_ids))
     return (
         torch.from_numpy(w[:, None]).to(device),
         torch.from_numpy(w_sh[:, None]).to(device),

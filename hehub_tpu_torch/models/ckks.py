@@ -256,6 +256,13 @@ def _decode_device(ctx: Context, ids: Tuple[int, ...], data: torch.Tensor, scale
     return torch.view_as_complex(slots).cpu().numpy()
 
 
+def device_encode_selected(max_abs: float, scale: float, device) -> bool:
+    """Does `encode` take the device codec for slots of magnitude at most
+    `max_abs` at `scale` on `device`?"""
+    return (config.device_codec_selected(device)
+            and scale * max(max_abs, 1.0) <= DEVICE_COEFF_BOUND)
+
+
 def encode(data, params: CkksParams, scaling_factor: Optional[float] = None,
            level: int = 0, *, device="cuda") -> CkksPt:
     """SIMD-encode up to n/2 complex numbers per row of `data` ([..., slots])
@@ -270,9 +277,7 @@ def encode(data, params: CkksParams, scaling_factor: Optional[float] = None,
     if data.shape[-1] > n // 2:
         raise ValueError(f"can encode at most {n // 2} slots")
     ids = tuple(range(len(params.moduli) - level))
-    max_abs = float(np.abs(data).max(initial=0.0))
-    if (config.device_codec_selected(device)
-            and scale * max(max_abs, 1.0) <= DEVICE_COEFF_BOUND):
+    if device_encode_selected(float(np.abs(data).max(initial=0.0)), scale, device):
         return CkksPt(_encode_device(ctx, ids, _pad_slots(data, n), scale, device), float(scale))
     digits, neg = _encode_host(data, n, scale)
     poly = basecnv.decompose_digits(

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import time
+from types import SimpleNamespace
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -89,6 +90,21 @@ def _window_spans(events) -> List[Tuple[float, float, str]]:
         and lo <= e.time_range.start <= hi)
 
 
+def _raw_events(prof) -> List[SimpleNamespace]:
+    """The activities of a finished torch.profiler trace as records with
+    the `name`, `device_type` and `time_range` (µs from the first activity)
+    of its FunctionEvents, read from the profiler's raw results: building
+    the FunctionEvents takes about 40 s for 500 000 activities (a traced
+    eager bootstrap refresh holds that many), this a second."""
+    raw = prof.profiler.kineto_results.events()
+    t0 = min((e.start_ns() for e in raw), default=0)
+    return [SimpleNamespace(
+        name=e.name(), device_type=e.device_type(),
+        time_range=SimpleNamespace(start=(e.start_ns() - t0) / 1e3,
+                                   end=(e.start_ns() + e.duration_ns() - t0) / 1e3))
+        for e in raw]
+
+
 def _traced_window(fn: Callable[[], object]):
     """Trace `fn()` with torch.profiler after a lead-in of small PyTorch
     kernels, inside a marked window that ends in a device sync. Returns the
@@ -107,7 +123,7 @@ def _traced_window(fn: Callable[[], object]):
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    return wall, _window_spans(prof.events())
+    return wall, _window_spans(_raw_events(prof))
 
 
 def _kernel_spans(fn: Callable[[], object], ours: bool, warmup: int,
@@ -183,18 +199,22 @@ def device_trace(fn: Callable[[], object]) -> Dict[str, object]:
     overhead included), device busy ms (the union of the kernel and copy
     intervals on the device), the idle share 1 − busy / wall, and the
     split of the device time over copies, this package's kernels and
-    PyTorch's kernels, as shares. Busy and idle are None when the trace
-    holds no device activity (the profiler could not trace the card)."""
+    PyTorch's kernels, as shares, and the number of activities of each
+    class (`launches`; a CUDA graph's kernels count each). Busy and idle
+    are None when the trace holds no device activity (the profiler could
+    not trace the card)."""
     _require_cuda()
     fn()
     wall, spans = _traced_window(fn)
     spans = [s for s in spans if s[1] > s[0]]
     if not spans:
-        return dict(wall_ms=wall * 1e3, busy_ms=None, idle_share=None, split={})
+        return dict(wall_ms=wall * 1e3, busy_ms=None, idle_share=None, split={}, launches={})
     by_class: Dict[str, float] = collections.defaultdict(float)
+    counts: Dict[str, int] = collections.Counter()
     busy_us, end = 0.0, float("-inf")
     for start, stop, name in spans:
         by_class[_activity(name)] += stop - start
+        counts[_activity(name)] += 1
         busy_us += max(0.0, stop - max(start, end))
         end = max(end, stop)
     total = sum(by_class.values())
@@ -203,4 +223,5 @@ def device_trace(fn: Callable[[], object]) -> Dict[str, object]:
         busy_ms=busy_us / 1e3,
         idle_share=1.0 - busy_us / 1e3 / (wall * 1e3),
         split={k: v / total for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])},
+        launches=dict(counts),
     )

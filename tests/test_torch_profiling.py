@@ -115,3 +115,26 @@ def test_window_spans_refuse_a_trace_without_one_window(windows):
     with pytest.raises(RuntimeError, match=f"{windows} host-side windows") as err:
         profiling._window_spans(events)
     assert not isinstance(err.value, profiling.ProfilerFault)
+
+
+def test_raw_events_match_the_profilers_function_events():
+    """The trace's activities read from the raw results carry the names,
+    device types and durations of torch.profiler's own FunctionEvents."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.zeros(4)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function(profiling._WINDOW):
+            for _ in range(20):
+                x.add_(1)
+    raw = profiling._raw_events(prof)
+    events = prof.events()
+    for name in (profiling._WINDOW, "aten::add_"):
+        got = sorted(e.time_range.end - e.time_range.start for e in raw if e.name == name)
+        want = sorted(e.time_range.end - e.time_range.start for e in events if e.name == name)
+        assert len(got) == len(want) > 0
+        assert got == pytest.approx(want, abs=1e-3)
+        assert {e.device_type for e in raw if e.name == name} == {
+            e.device_type for e in events if e.name == name}
+    assert min(e.time_range.start for e in raw) == 0.0
