@@ -95,14 +95,32 @@ Phases, each printing its own lines:
      phase 3; CUDA-event times of the whole refresh, its four stages and
      the batch-8 refresh, eager and captured; traces of one eager and one
      captured refresh;
-  11. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
+  11. CKKS at n=65536, above the kernels' sub-rows of 32768: 40+4 limbs
+     of 30 bits, batch 8, keys on the card (alpha=4 relin and rotation
+     keys, an alpha=1 relin key): encode + encrypt (device codec, K5 at
+     m=32768), mult + relin + rescale at alpha=4 (K1, K2, K4), rotate(1)
+     at alpha=4, mult + relin + rescale at alpha=1 (K3), decrypt + decode,
+     against a*b (<= 2^-8) and its roll (<= 2^-5); all five kernels must
+     have launched; one row of the alpha=4 mult and of the rotate replayed
+     on the CPU bitwise; the batch-8 product and the alpha=4 relin key
+     saved (utils/serialization.py) and loaded onto the card bitwise equal,
+     the loaded ciphertext decoding to the same slots, with bytes and host
+     seconds; modulus_headroom_bits fresh and after the mult and
+     ckks_error_bits after it on one row (utils/noise.py), with host
+     seconds; CUDA-event times per ciphertext of each step and traces of
+     the mults and the rotate; K1-K5 at the
+     path's shapes and at n=131072 (K5 at m=65536) bitwise against their
+     plain versions and timed as in phase 3 (`*_large` records);
+  12. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
      `launch_weighted_kernel_ms`; then the five small-ring records
      `*_small_n` / `fft_small_m`, whose launches are the small-ring
      paths'; then `ntt_fwd_tfhe` / `ntt_inv_tfhe`, whose launches are the
      TFHE path's; then `ntt_fwd_boot`, `ntt_inv_boot`, `ext_prod_boot`,
-     `fft_boot`, whose launches are phase 10's); the card line; last, the
-     result line {"ok": true, "device": {...}}.
+     `fft_boot`, whose launches are phase 10's; then `ntt_fwd_large`,
+     `ntt_inv_large`, `ext_prod_large`, `ext_prod_conv_large`, `fft_large`,
+     whose launches are phase 11's, each with its n=131072 numbers); the
+     card line; last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
 A kernel-only time is read from a window of the profiler's trace that
@@ -115,8 +133,10 @@ than half of the `kernels` line's records lack it.
 import copy
 import functools
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -134,6 +154,8 @@ from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.rlwe import keys as keys_mod
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
+from hehub_tpu_torch.utils import noise
+from hehub_tpu_torch.utils import serialization
 from hehub_tpu_torch.utils.profiling import (ProfilerFault, device_time, device_trace,
                                               kernel_time, step_time)
 
@@ -210,6 +232,21 @@ BOOT_K_BOUND = 5
 BOOT_D_IN = 2.0**26
 BOOT_BATCH = 8
 MAX_ERR_BOOT = 1e-3
+# Phase 11, CKKS at n=65536, a ring above the kernels' sub-rows of 32768:
+# 40 + 4 limbs of 30 bits (1318 bits of log QP), batch 8, alpha=4 relin and
+# rotation keys, an alpha=1 relin key (K3); the rotate's bound is looser
+# than the mults' 2^-8: the hybrid key switch's noise grows with n (about
+# 2^-7 here against 2^-8.55 at n=16384); one row replayed on the CPU;
+# K1-K5 also held and timed at n=131072 (K5 at m=65536) on a few rows
+LARGE_N = 65536
+LARGE_LEVELS = 40
+LARGE_SPECIAL = 4
+LARGE_ALPHA = 4
+LARGE_BATCH = 8
+MAX_ERR_LARGE_ROT = 2.0**-5
+LARGE_REPLAY_ROWS = 1
+LARGEST_N = 131072
+LARGEST_SHAPES = dict(ntt=(2, 8), ext=(2, 8, 2), fft=3)  # [rows, L]; (R, l, specials); rows
 
 # Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
 HBM_BYTES_PER_S = 3.35e12  # data sheet
@@ -554,9 +591,16 @@ def launch_weighted(sweep, path_rows, path_steps):
     return out
 
 
-def _rows_on_cpu(ct, rows):
-    take = lambda p: RnsPoly(p.data[:rows].cpu(), p.form, p.limb_ids)  # noqa: E731
+def _first_rows(ct, rows, device=None):
+    """The first `rows` ciphertexts of a batch, on `device` (theirs by
+    default)."""
+    take = lambda p: RnsPoly(p.data[:rows].to(device or p.data.device), p.form,  # noqa: E731
+                             p.limb_ids)
     return ckks.CkksCt(take(ct.c0), take(ct.c1), ct.scaling_factor)
+
+
+def _rows_on_cpu(ct, rows):
+    return _first_rows(ct, rows, "cpu")
 
 
 def _key_on_cpu(k):
@@ -702,9 +746,9 @@ def main_path(params, ctx, dev):
     return launches, s["rows"], step_rows("main", steps)
 
 
-def print_traces(tag, steps):
+def print_traces(tag, steps, batch=BATCH):
     for name, fn in steps.items():
-        print(f"[{tag}] torch.profiler trace of one batch-64 {name}: "
+        print(f"[{tag}] torch.profiler trace of one batch-{batch} {name}: "
               f"{json.dumps(device_trace(fn))}")
 
 
@@ -1579,6 +1623,286 @@ def bootstrap_path(dev):
     print(f"[bootstrap] seconds of the phase (host clock): {json.dumps(seconds)}")
     return launches, records
 
+def large_ntt_record(kind, ctx, dev, shape, gen):
+    """K1 or K2 (`kind`) on lazy residues of `shape` [rows, L, n], n above
+    kernels.NTT_SUB_N, with the regrouped tables: bitwise against the plain
+    chain, timed as in phase 3."""
+    rows, L, n = shape
+    ids = tuple(range(L))
+    fwd = kind == "ntt_fwd"
+    names = nttmod.FWD_TABLES if fwd else nttmod.INV_TABLES
+    split = nttmod.FWD_SPLIT_TABLES if fwd else nttmod.INV_SPLIT_TABLES
+    plain = nttmod.ntt_fwd if fwd else nttmod.ntt_inv
+    launch = kernels.ntt_fwd if fwd else kernels.ntt_inv
+    x = lazy_residues(gen, shape, ctx.device_rows("two_q", ids, dev))
+    tabs32 = [ctx.device_rows(nm, ids, dev, torch.int32) for nm in split]
+    t64 = [ctx.device_rows(nm, ids, dev) for nm in names]
+    x32 = nttmod.to_u32_bits(x)
+    got = nttmod.from_u32_bits(launch(x32, *tabs32))
+    want = plain(x, *t64)
+    return dict(shape=str(list(shape)), max_abs_err=int((got - want).abs().max()),
+                **timed(lambda: launch(x32, *tabs32)),
+                plain_ms=device_time(lambda: plain(x, *t64), 1, 3) * 1e3, library_ms=None,
+                **bound(2 * x32.numel() * 4, ntt_ops(rows * L, n, not fwd), INT32_PER_S))
+
+
+def large_ext_record(kind, ctx, dev, digits, key):
+    """K3 (`kind` "ext_prod", strict digits [R, l, n]) or K4
+    ("ext_prod_conv", converted digits [R, D, L_ext, n]) against the RGSW
+    rows `key`, n above kernels.EXT_SUB_N, with the regrouped tables:
+    bitwise against the plain version one row at a time (its memory), timed
+    as in phase 3."""
+    ids_ext = key.limb_ids
+    R, D, n = digits.shape[0], digits.shape[1], digits.shape[-1]
+    L_ext = len(ids_ext)
+    tabs = [ctx.device_rows(nm, ids_ext, dev, torch.int32) for nm in nttmod.EXT_SPLIT_TABLES]
+    d32, key32 = nttmod.to_u32_bits(digits), nttmod.to_u32_bits(key.data[:D])
+    launch = kernels.ext_prod if kind == "ext_prod" else kernels.ext_prod_conv
+    plain = plain_ext_prod if kind == "ext_prod" else plain_ext_prod_conv
+    got = nttmod.from_u32_bits(launch(d32, key32, *tabs))
+    err = 0
+    for r in range(R):
+        want = plain(ctx, digits[r:r + 1], key)
+        err = max(err, int((got[0, r:r + 1] - want.c0.data).abs().max()),
+                  int((got[1, r:r + 1] - want.c1.data).abs().max()))
+    del got, want
+    rows = R * D * L_ext
+    return dict(shape=f"R={R}, {'l' if kind == 'ext_prod' else 'D'}={D}, L_ext={L_ext}, n={n}",
+                max_abs_err=err, **timed(lambda: launch(d32, key32, *tabs)),
+                plain_ms=device_time(lambda: [plain(ctx, digits[r:r + 1], key)
+                                              for r in range(R)], 0, 1) * 1e3,
+                library_ms=None,
+                **bound(4 * (d32.numel() + key32.numel() + 2 * R * L_ext * n),
+                        ntt_ops(rows, n) + rows * n * 2 * CONTRACT_OPS, INT32_PER_S))
+
+
+def large_fft_record(dev, rows, m, gen):
+    """K5 on [rows, m] (clusters of 4 or 8 blocks a row), bitwise against
+    fft_plain, timed as in phase 3 beside torch.fft.fft."""
+    re, im = (torch.rand((rows, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+              for _ in range(2))
+    tw = fftmod._device_tables(m, str(dev))
+    got, want = kernels.fft(re, im, *tw), fftmod.fft_plain(re, im, m)
+    natural = torch.complex(re, im)
+    return dict(shape=f"[{rows}, {m}]",
+                max_abs_err=max(float((got[0] - want[0]).abs().max()),
+                                float((got[1] - want[1]).abs().max())),
+                **timed(lambda: kernels.fft(re, im, *tw)),
+                plain_ms=device_time(lambda: fftmod.fft_plain(re, im, m), 1, 3) * 1e3,
+                library_ms=device_time(lambda: torch.fft.fft(natural)) * 1e3,
+                **kernel_only(lambda: torch.fft.fft(natural), False, "library_kernel_ms"),
+                **bound(4 * re.numel() * 8 + 2 * tw[0].numel() * 8,
+                        rows * (m // 2) * (m.bit_length() - 1) * FFT_BUTTERFLY_FLOPS, FP64_PER_S))
+
+
+def large_kernel_records(ctx, dev, rlk1, rlk4):
+    """K1-K5 at phase 11's shapes (K1/K2 on [8, 40, 65536], K3 with the
+    path's alpha=1 relin key at R=8, l=40, L_ext=44, K4 with its alpha=4
+    key at R=8, D=10, L_ext=44, K5 on [8, 32768]) and at n=131072 (random
+    key rows; K5 at m=65536), each bitwise against its plain version and
+    timed as in phase 3. Returns the `*_large` records, the n=131072
+    numbers under `n131072`."""
+    gen = torch.Generator(device=dev).manual_seed(62)
+    n, L = LARGE_N, LARGE_LEVELS
+    ids = tuple(range(L))
+    ids_ext = rlk1.limb_ids
+    D = -(-L // LARGE_ALPHA)
+    strict = torch.stack([torch.randint(0, m, (LARGE_BATCH, n), generator=gen, device=dev)
+                          for m in ctx.moduli_of(ids)], dim=1)
+    conv = lazy_residues(gen, (LARGE_BATCH, D, len(ids_ext), n),
+                         ctx.device_rows("two_q", ids_ext, dev))
+    at_path = dict(
+        ntt_fwd=large_ntt_record("ntt_fwd", ctx, dev, (LARGE_BATCH, L, n), gen),
+        ntt_inv=large_ntt_record("ntt_inv", ctx, dev, (LARGE_BATCH, L, n), gen),
+        ext_prod=large_ext_record("ext_prod", ctx, dev, strict, rlk1),
+        ext_prod_conv=large_ext_record("ext_prod_conv", ctx, dev, conv, rlk4),
+        fft=large_fft_record(dev, LARGE_BATCH, n // 2, gen),
+    )
+    del strict, conv
+    torch.cuda.empty_cache()
+
+    R, l, sp = LARGEST_SHAPES["ext"]
+    big = make_context(create_ckks_params(LARGEST_N, 28, l, use_security_budget=False,
+                                          num_special=sp))
+    b_ids = tuple(range(l))
+    b_ext = b_ids + big.special_indices
+    b_two_q = big.device_rows("two_q", b_ext, dev)
+    key = rgsw_mod.RgswCt(lazy_residues(gen, (l, 2, len(b_ext), LARGEST_N), b_two_q), b_ext)
+    strict = torch.stack([torch.randint(0, m, (R, LARGEST_N), generator=gen, device=dev)
+                          for m in big.moduli_of(b_ids)], dim=1)
+    conv = lazy_residues(gen, (R, 2, len(b_ext), LARGEST_N), b_two_q)
+    rows, limbs = LARGEST_SHAPES["ntt"]
+    at_largest = dict(
+        ntt_fwd=large_ntt_record("ntt_fwd", big, dev, (rows, limbs, LARGEST_N), gen),
+        ntt_inv=large_ntt_record("ntt_inv", big, dev, (rows, limbs, LARGEST_N), gen),
+        ext_prod=large_ext_record("ext_prod", big, dev, strict, key),
+        ext_prod_conv=large_ext_record("ext_prod_conv", big, dev, conv, key),
+        fft=large_fft_record(dev, LARGEST_SHAPES["fft"], LARGEST_N // 2, gen),
+    )
+    records = {}
+    for kind, rec in at_path.items():
+        top = at_largest[kind]
+        check(top["max_abs_err"] == 0, f"{kind} at n={LARGEST_N} differs from its plain version")
+        top["kernel_over_bound"] = ratio(top["kernel_ms"], top["bound_ms"])
+        records[f"{kind}_large"] = dict(**origin(kind), match="bitwise vs plain", **rec,
+                                        n131072=top)
+        print(f"[large] {kind} at n={LARGEST_N}, {top['shape']}: bitwise vs plain, kernel-only "
+              f"{top['kernel_ms']} ms, call {top['ms']:.4f} ms, plain {top['plain_ms']:.4f} ms, "
+              f"bound {top['bound_ms']:.4f} ms by {top['bound_by']}, kernel-only / bound "
+              f"{top['kernel_over_bound']}")
+    summarize(records)
+    return records
+
+
+def large_ring_path(dev):
+    """Phase 11: CKKS at n=65536, 40+4 limbs of 30 bits, batch 8, keys made
+    on the card (alpha=4 relin and rotation keys, an alpha=1 relin key):
+    encode + encrypt, mult + relin + rescale at alpha=4, rotate(1) at
+    alpha=4, mult + relin + rescale at alpha=1, decrypt + decode, between a
+    reset and a read of the launch counts; a CPU replay of one row;
+    serialization of the product and of the alpha=4 relin key through a
+    temporary directory; the noise probes on one row; CUDA-event times of
+    the steps, traces of the key-switching ones; K1-K5 at the path's
+    shapes and at n=131072. Returns (launch
+    counts of the phase, the `*_large` kernel records)."""
+    params = create_ckks_params(LARGE_N, scaling_bits=28, num_levels=LARGE_LEVELS,
+                                num_special=LARGE_SPECIAL, use_security_budget=False)
+    ctx = make_context(params)
+    rng = np.random.default_rng(61)
+    a, b = (rng.uniform(-1, 1, (LARGE_BATCH, LARGE_N // 2)) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(61)
+    log_qp = float(sum(np.log2(float(q)) for q in params.moduli + params.special_mods))
+    print(f"[large] n={LARGE_N} L={LARGE_LEVELS}+{LARGE_SPECIAL}, log2 QP = {log_qp:.2f}, "
+          f"alpha={LARGE_ALPHA} and 1, batch {LARGE_BATCH}")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_phase = t0 = time.perf_counter()
+    sk = rlwe_mod.keygen(ctx, gen)
+    rlk4 = keys_mod.relin_key(ctx, sk, gen, alpha=LARGE_ALPHA)
+    rk4 = keys_mod.rot_key(ctx, sk, 1, gen, alpha=LARGE_ALPHA)
+    rlk1 = keys_mod.relin_key(ctx, sk, gen)
+    torch.cuda.synchronize()
+    t_keys = time.perf_counter() - t0
+    encode_encrypt = lambda x: ckks.encrypt(ctx, ckks.encode(x, params, device=dev), sk, gen)  # noqa: E731
+    mult = lambda rlk: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk))  # noqa: E731
+    dec = lambda ct: ckks.decode(ckks.decrypt(ctx, ct, sk), params)  # noqa: E731
+    ca, cb = encode_encrypt(a), encode_encrypt(b)
+    prod4 = mult(rlk4)
+    rot = ckks.rotate(ctx, prod4, rk4, 1)
+    prod1 = mult(rlk1)
+    out4, out_rot, out1 = dec(prod4), dec(rot), dec(prod1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_phase
+    launches = dict(kernels.LAUNCHES)
+    launch_rows = {k: dict(v) for k, v in kernels.LAUNCH_ROWS.items()}
+
+    ab = a * b
+    errs = dict(mult_alpha4=float(np.abs(out4 - ab).max()),
+                rotate_alpha4=float(np.abs(out_rot - np.roll(ab, 1, axis=-1)).max()),
+                mult_alpha1=float(np.abs(out1 - ab).max()))
+    for out in (out4, out_rot, out1):
+        check(out.shape == (LARGE_BATCH, LARGE_N // 2) and bool(np.isfinite(out).all()),
+              f"large: decoded shape {out.shape} or values not finite")
+    check(rot.limb_ids == tuple(range(LARGE_LEVELS - 1)), f"large: result limbs {rot.limb_ids}")
+    check(errs["mult_alpha4"] <= MAX_ERR_MULT and errs["mult_alpha1"] <= MAX_ERR_MULT,
+          f"large: mult decode errors {errs} above {MAX_ERR_MULT}")
+    check(errs["rotate_alpha4"] <= MAX_ERR_LARGE_ROT,
+          f"large: rotate decode error {errs['rotate_alpha4']} above {MAX_ERR_LARGE_ROT}")
+    for name in kernels.LAUNCHES:
+        check(launches[name] > 0, f"kernel {name} was not launched on the n={LARGE_N} path")
+    key_gb = sum(k.data.numel() * 8 for k in (rlk4, rk4, rlk1)) / 1e9
+    print(f"[large] keygen + keys {t_keys:.3f} s ({key_gb:.3f} GB as int64: alpha=4 "
+          f"{list(rlk4.data.shape)} x 2, alpha=1 {list(rlk1.data.shape)}); keygen..decode "
+          f"{wall:.3f} s (host clock); max|err| {json.dumps(errs)} (log2 "
+          f"{json.dumps({k: round(float(np.log2(v)), 3) for k, v in errs.items()})}); launches "
+          f"{json.dumps(launches)}; by rows {{rows: launches}} {json.dumps(launch_rows)}")
+    seconds = dict(drive=wall)
+
+    t0 = time.perf_counter()
+    r = LARGE_REPLAY_ROWS
+    prod_c = ckks.rescale(ctx, ckks.mult(ctx, _rows_on_cpu(ca, r), _rows_on_cpu(cb, r),
+                                         _key_on_cpu(rlk4)))
+    rot_c = ckks.rotate(ctx, prod_c, _key_on_cpu(rk4), 1)
+    for got, card in ((prod_c, prod4), (rot_c, rot)):
+        check(_same_ct(got, _rows_on_cpu(card, r)),
+              "large: the card's ciphertexts differ from the plain CPU path")
+    seconds["cpu_replay"] = time.perf_counter() - t0
+    print(f"[large] plain CPU replay of {r} row(s) of the alpha=4 mult + rescale and the "
+          f"rotate: bitwise equal, {seconds['cpu_replay']:.3f} s")
+    del prod_c, rot_c
+
+    t0 = time.perf_counter()
+    files = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, obj in (("ciphertext", prod4), ("relin_key_alpha4", rlk4)):
+            path = os.path.join(tmp, f"{tag}.npz")
+            t1 = time.perf_counter()
+            serialization.save(path, obj, params)
+            t_save = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            back, back_params = serialization.load(path, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t1
+            check(back_params == params, f"large: {tag} loaded with other parameters")
+            if tag == "ciphertext":
+                same = (_same_ct(back, obj) and back.c0.data.device == dev
+                        and np.array_equal(dec(back), out4))
+            else:
+                same = (back.limb_ids == obj.limb_ids and back.alpha == obj.alpha
+                        and back.data.device == dev and torch.equal(back.data, obj.data))
+            check(same, f"large: the loaded {tag} differs from the saved one")
+            files[tag] = dict(bytes=os.path.getsize(path), save_s=t_save, load_s=t_load)
+            del back
+    seconds["serialization"] = time.perf_counter() - t0
+    print(f"[large] serialization (host seconds; .npz in the reference's format, deleted after): "
+          f"{json.dumps(files)}; the loaded ciphertext and key are bitwise the saved ones on the "
+          f"card, and the ciphertext decodes to the same slots")
+
+    t0 = time.perf_counter()
+    probes = {}
+    fresh, after = _first_rows(ca, 1), _first_rows(prod4, 1)
+    for tag, fn in (
+            ("headroom_bits_fresh",
+             lambda: noise.modulus_headroom_bits(ctx, (fresh.c0, fresh.c1), sk)),
+            ("headroom_bits_after_mult",
+             lambda: noise.modulus_headroom_bits(ctx, (after.c0, after.c1), sk)),
+            ("ckks_error_bits_after_mult",
+             lambda: noise.ckks_error_bits(ctx, after, sk, ab[0], params))):
+        t1 = time.perf_counter()
+        probes[tag] = fn()
+        probes[f"{tag}_host_s"] = time.perf_counter() - t1
+    check(probes["headroom_bits_fresh"] > probes["headroom_bits_after_mult"] > 0,
+          f"large: headroom {probes} does not shrink with the mult")
+    check(probes["ckks_error_bits_after_mult"] <= np.log2(MAX_ERR_MULT),
+          f"large: ckks_error_bits {probes['ckks_error_bits_after_mult']} above the mult bound")
+    seconds["noise"] = time.perf_counter() - t0
+    print(f"[large] noise probes on one row (*_s: host seconds): {json.dumps(probes)}")
+
+    t0 = time.perf_counter()
+    per_ct = lambda fn: device_time(fn, 1, 3) * 1e3 / LARGE_BATCH  # noqa: E731
+    metrics = dict(
+        large_encode_encrypt_ms=per_ct(lambda: encode_encrypt(a)),
+        large_mult_alpha4_ms_per_op=per_ct(lambda: mult(rlk4)),
+        large_rotate_alpha4_ms_per_op=per_ct(lambda: ckks.rotate(ctx, prod4, rk4, 1)),
+        large_mult_alpha1_ms_per_op=per_ct(lambda: mult(rlk1)),
+        large_decrypt_decode_ms=per_ct(lambda: dec(prod4)),
+    )
+    print(f"[large] times (CUDA events, per ciphertext of a batch-{LARGE_BATCH} call), "
+          f"{card_line()}: {json.dumps(metrics)}")
+    print_traces("large", {"mult+relin+rescale alpha=4": lambda: mult(rlk4),
+                           "rotate(1) alpha=4": lambda: ckks.rotate(ctx, prod4, rk4, 1),
+                           "mult+relin+rescale alpha=1": lambda: mult(rlk1)}, LARGE_BATCH)
+    seconds["times_and_traces"] = time.perf_counter() - t0
+    del ca, cb, prod1, rot, rk4
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    records = large_kernel_records(ctx, dev, rlk1, rlk4)
+    seconds["kernels"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    print(f"[large] seconds of the phase (host clock): {json.dumps(seconds)}")
+    return launches, records
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1625,6 +1949,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     boot_launches, boot_records = bootstrap_path(dev)
     torch.cuda.empty_cache()
+    large_launches, large_records = large_ring_path(dev)
+    torch.cuda.empty_cache()
     by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches,
                "bgv": bgv_launches}
     for k, rec in records.items():
@@ -1657,6 +1983,12 @@ def main() -> int:
         rec["launches_by_path"] = {"bootstrap": boot_launches[kind]}
         check(rec["launches"] > 0, f"kernel {name} was not launched on the bootstrap path")
     records.update(boot_records)
+    for name, rec in large_records.items():
+        kind = name.rsplit("_large", 1)[0]
+        rec["launches"] = large_launches[kind]
+        rec["launches_by_path"] = {"large_ring": large_launches[kind]}
+        check(rec["launches"] > 0, f"kernel {name} was not launched on the n={LARGE_N} path")
+    records.update(large_records)
     lost = [k for k, rec in records.items() if rec["kernel_ms"] is None]
     check(2 * len(lost) <= len(records),
           f"the profiler gave no kernel-only time for {lost}: the instrument, not a dropped record")

@@ -10,6 +10,11 @@ device, dtype) on the context.
 Layout: a context covers M = len(moduli) + len(special_mods) limbs, the
 ciphertext chain q_0..q_{L-1} followed by the key-switching special
 prime(s).
+
+The twiddle tables also come regrouped for rows split into sub-rows, as
+the kernels split rows above kernels.NTT_SUB_N / EXT_SUB_N: under the
+name `sub_table(name, sub_n)` (see `sub_row_tables`), made from the
+compact ones when first asked for.
 """
 
 from __future__ import annotations
@@ -282,6 +287,48 @@ def _shoup_np(w: np.ndarray, q: int) -> np.ndarray:
     return ((w.astype(U64) << U64(32)) // U64(q)).astype(U32)
 
 
+def sub_table(name: str, sub_n: int) -> str:
+    """The name under which Context.rows / device_rows and
+    ModulusTables.device_row give the twiddle table `name` (tw_fwd,
+    tw_fwd_sh, tw_inv or tw_inv_sh) regrouped for sub-rows of sub_n
+    (sub_row_tables)."""
+    return f"{name}@{sub_n}"
+
+
+def _regrouped(name: str):
+    """(compact table, sub_n) of a sub_table name, or None."""
+    base, _, sub_n = name.partition("@")
+    return (base, int(sub_n)) if sub_n else None
+
+
+def sub_row_tables(tw: np.ndarray, sub_n: int) -> np.ndarray:
+    """A compact [L, n] twiddle table regrouped for rows of n = P sub_n
+    split into P = 2^k sub-rows of sub_n: [L P, sub_n], row l P + j holding
+    sub-row j's table sub_j[m + i] = tw[l, P m + j m + i] for m = 1, 2, 4,
+    ..., sub_n / 2 and i < m, and in its entry 0, which no stage of a
+    sub-row reads, tw[l, j]: so the rows of limb l also hold tw[l, :2P],
+    entry e < P at row l P + e, entry 0, and entry P + j at row l P + j,
+    entry 1 (the twiddles of the stages that pair whole sub-rows, which the
+    kernels read there).
+
+    After the first k forward stages, which pair whole sub-rows, stage
+    k + s of the chain takes tw[2^(k+s) + i] for group i = j 2^s + i' of
+    sub-row j, which is sub_j[2^s + i']: each sub-row runs the ordinary
+    chain of length sub_n under sub_j. The inverse chain's first
+    log2(sub_n) stages act within sub-rows the same way (block b of stage s
+    takes tw[n / 2^(s+1) + b]). For n <= sub_n the result is tw itself."""
+    L, n = tw.shape
+    parts = max(n // sub_n, 1)
+    width = n // parts
+    out = np.empty((L, parts, width), tw.dtype)
+    out[:, :, 0] = tw[:, :parts]
+    m = 1
+    while m < width:
+        out[:, :, m : 2 * m] = tw[:, parts * m : 2 * parts * m].reshape(L, parts, m)
+        m *= 2
+    return out.reshape(L * parts, width)
+
+
 class ModulusTables:
     """Per-modulus constants and twiddle tables for one prime q; `device_row`
     hands out cached device copies shaped as one limb."""
@@ -311,13 +358,19 @@ class ModulusTables:
     def device_row(self, name: str, device: torch.device,
                    dtype: torch.dtype = torch.int64) -> torch.Tensor:
         """Table `name` as the one limb of a context's rows ([1, n] for a
-        twiddle table, [1, 1] for a constant) on `device`, in the dtypes of
-        Context.device_rows. Cached on the tables."""
+        twiddle table, [1, 1] for a constant, [n / sub_n, sub_n] for a
+        sub_table) on `device`, in the dtypes of Context.device_rows.
+        Cached on the tables."""
         device = torch.device(device)
         key = (name, str(device), dtype)
         t = self._device_cache.get(key)
         if t is None:
-            host = np.asarray(getattr(self, name), dtype=U32).reshape(1, -1)
+            regrouped = _regrouped(name)
+            if regrouped:
+                base, sub_n = regrouped
+                host = sub_row_tables(getattr(self, base).reshape(1, -1), sub_n)
+            else:
+                host = np.asarray(getattr(self, name), dtype=U32).reshape(1, -1)
             host = host.view(np.int32) if dtype == torch.int32 else host.astype(np.int64)
             t = torch.from_numpy(host).to(device=device)
             self._device_cache[key] = t
@@ -378,7 +431,12 @@ class Context:
             self.plain_fact_tables = ftabs
 
     def rows(self, name: str, limb_ids: Tuple[int, ...]) -> np.ndarray:
-        """Host rows of table `name` for `limb_ids`."""
+        """Host rows of table `name` for `limb_ids` (of a sub_table: its
+        [len(limb_ids) n / sub_n, sub_n] rows, sub_row_tables)."""
+        regrouped = _regrouped(name)
+        if regrouped:
+            base, sub_n = regrouped
+            return sub_row_tables(self.rows(base, limb_ids), sub_n)
         return getattr(self, name)[np.asarray(limb_ids, dtype=np.int64)]
 
     def device_rows(

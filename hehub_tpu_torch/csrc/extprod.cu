@@ -1,5 +1,6 @@
 // K3 and K4: the fused external product (RNS key switching), one thread
-// block of n/32 threads per (row r, extended output limb j).
+// block per (row r, extended output limb j), and per sub-row of 16384 above
+// n = 16384.
 //
 // K3 (hh_ext_prod, alpha = 1) replaces the TPU kernel
 // hehub_tpu/ops/pallas/extprod_pallas.py::_kernel, built by make_ext_prod;
@@ -55,6 +56,24 @@
 // threads takes 2048 / n (row, limb) pairs, runs each digit's stages in
 // shared memory and keeps the accumulators in registers
 // (ext_prod_small_kernel).
+//
+// Rows of n = 2^k 16384 (32768, 65536 and 131072) run the n = 16384 block
+// program on sub-rows: a block per (row r, extended limb j, sub-row
+// g < 2^k). The first k stages of a digit NTT pair whole sub-rows, so the
+// block loads its column of every sub-row of the digit row (2^k loads a
+// value; the blocks of the row's other sub-rows run beside it and read the
+// same lines, from L2), computes those stages under q_j along the branch
+// that ends in sub-row g (hh::fwd_cross), and runs the sub-row's 14 stages
+// under its own table row (row j 2^k + g of the tables regrouped for
+// sub-rows of 16384, whose rows also hold the cross stages' twiddles;
+// ntt.cu's header gives the algebra). The kernel's arguments stay those of
+// unsplit rows: two more pointers in ExtProdArgs cost K3/K4 3.5-5 % at
+// n = 16384 (52 registers a thread instead of 64, PERF.md). Key and
+// output are read and written at sub-row g of limb j, and the
+// accumulation stays in digit order, so the output stays bitwise. At
+// n = 32768 this replaced a program of 128 values a thread with the
+// accumulators in the output rows, and at 65536 a split into sub-rows of
+// 32768 on that program, which ran at 6.1x its bound (PERF.md).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -70,7 +89,7 @@ struct ExtProdArgs {
   long long dig_row_stride, dig_digit_stride, dig_limb_stride;
   const uint32_t* key;
   long long key_row_stride, key_half_stride, key_limb_stride;
-  const uint32_t* tw;
+  const uint32_t* tw;  // [L_ext 2^k, n]: the regrouped tables of rows of n 2^k
   const uint32_t* tw_sh;
   const uint32_t* q;
   const uint32_t* two_q;
@@ -79,46 +98,66 @@ struct ExtProdArgs {
   int R, D, L_ext, logn;
 };
 
-// Where a block keeps its two accumulators of n values.
-enum Acc { kAccShared, kAccOutput };
-
-// One block of T = n / 2^EB threads per (row r, extended limb j); thread tid
-// ends each digit's NTT holding the E = 2^EB contiguous values tid E + e.
-// The accumulators live in 2n words of shared memory after the exchange
-// buffer, element e of thread tid at e T + tid (kAccShared), or in the
-// output rows themselves, read and written only by the thread that owns
-// them (kAccOutput).
-template <int LOGN, int EB, Acc ACC>
+// One block of T = n / 2^EB threads per (row r, extended limb j, sub-row g
+// < 2^K) of rows of n 2^K values, n = 2^LOGN, block r 2^K + g of grid
+// column j, so that the blocks of a row's sub-rows, which read the same
+// digit lines, run side by side; thread tid ends each digit's NTT holding
+// the E = 2^EB contiguous values tid E + e of sub-row g. The accumulators
+// live in 2n words of shared memory after the exchange buffer, element e of
+// thread tid at e T + tid.
+template <int LOGN, int EB, int K = 0>
 __global__ void __launch_bounds__(1 << (LOGN - EB)) ext_prod_kernel(const ExtProdArgs a) {
   extern __shared__ uint4 smem_ep[];
   uint32_t* x = reinterpret_cast<uint32_t*>(smem_ep);
   constexpr int n = 1 << LOGN;
+  constexpr long long NF = static_cast<long long>(n) << K;  // the row
   constexpr int E = 1 << EB;
   constexpr int T = n / E;
   uint32_t* acc0_sh = x + ((hh::padded<EB>(n) + 3) & ~3);
   uint32_t* acc1_sh = acc0_sh + n;
   const int tid = threadIdx.x;
-  const int r = blockIdx.x;
+  const int r = static_cast<int>(blockIdx.x >> K);
+  const int g = static_cast<int>(blockIdx.x & ((1u << K) - 1));
   const int j = blockIdx.y;
   const uint32_t q = a.q[j];
   const uint32_t two_q = a.two_q[j];
   const uint32_t neg_qinv = a.neg_qinv[j];
-  const uint32_t* twj = a.tw + static_cast<long long>(j) * n;
-  const uint32_t* tw_shj = a.tw_sh + static_cast<long long>(j) * n;
+  const uint32_t* rows = a.tw + (static_cast<long long>(j) << K) * n;  // limb j's tables
+  const uint32_t* rows_sh = a.tw_sh + (static_cast<long long>(j) << K) * n;
+  const uint32_t* twj = rows + g * n;  // sub-row g's
+  const uint32_t* tw_shj = rows_sh + g * n;
+  uint32_t w[K + 1], w_sh[K + 1];  // the cross stages' twiddles on g's branch
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int at = (1 << s) + (g >> (K - s));
+    w[s] = hh::cross_twiddle<K>(rows, n, at);
+    w_sh[s] = hh::cross_twiddle<K>(rows_sh, n, at);
+  }
   const uint32_t* dig = a.digits + r * a.dig_row_stride + j * a.dig_limb_stride;
-  uint4* o0 = reinterpret_cast<uint4*>(a.out + (static_cast<long long>(r) * a.L_ext + j) * n) +
-              tid * (E / 4);
-  uint4* o1 = o0 + static_cast<long long>(a.R) * a.L_ext * n / 4;
+  uint4* o0 =
+      reinterpret_cast<uint4*>(a.out + (static_cast<long long>(r) * a.L_ext + j) * NF + g * n) +
+      tid * (E / 4);
+  uint4* o1 = o0 + static_cast<long long>(a.R) * a.L_ext * NF / 4;
 
   for (int i = 0; i < a.D; ++i) {
     const uint32_t* d = dig + i * a.dig_digit_stride;
     uint32_t v[E];
+    if constexpr (K == 0) {
 #pragma unroll
-    for (int e = 0; e < E; ++e) v[e] = __ldg(d + e * T + tid);
+      for (int e = 0; e < E; ++e) v[e] = __ldg(d + e * T + tid);
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        uint32_t y[1 << K];
+#pragma unroll
+        for (int u = 0; u < (1 << K); ++u) y[u] = __ldg(d + u * n + e * T + tid);
+        v[e] = hh::fwd_cross<K>(y, g, w, w_sh, q, two_q);
+      }
+    }
     hh::fwd_stages_reg<LOGN, EB>(v, x, tid, twj, tw_shj, q, two_q);
-    const uint4* k0 =
-        reinterpret_cast<const uint4*>(a.key + i * a.key_row_stride + j * a.key_limb_stride) +
-        tid * (E / 4);
+    const uint4* k0 = reinterpret_cast<const uint4*>(a.key + i * a.key_row_stride +
+                                                     j * a.key_limb_stride + g * n) +
+                      tid * (E / 4);
     const uint4* k1 = k0 + a.key_half_stride / 4;
 #pragma unroll
     for (int p = 0; p < E / 4; ++p) {
@@ -132,41 +171,24 @@ __global__ void __launch_bounds__(1 << (LOGN - EB)) ext_prod_kernel(const ExtPro
         p0[c] = hh::mont_mul_lazy(v[4 * p + c], kw0[c], q, neg_qinv);
         p1[c] = hh::mont_mul_lazy(v[4 * p + c], kw1[c], q, neg_qinv);
       }
-      if constexpr (ACC == kAccShared) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int at = (4 * p + c) * T + tid;
-          acc0_sh[at] = i == 0 ? p0[c] : hh::add_lazy(acc0_sh[at], p0[c], two_q);
-          acc1_sh[at] = i == 0 ? p1[c] : hh::add_lazy(acc1_sh[at], p1[c], two_q);
-        }
-      } else {
-        if (i > 0) {
-          const uint4 s0 = o0[p], s1 = o1[p];
-          const uint32_t a0[4] = {s0.x, s0.y, s0.z, s0.w};
-          const uint32_t a1[4] = {s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            p0[c] = hh::add_lazy(a0[c], p0[c], two_q);
-            p1[c] = hh::add_lazy(a1[c], p1[c], two_q);
-          }
-        }
-        o0[p] = make_uint4(p0[0], p0[1], p0[2], p0[3]);
-        o1[p] = make_uint4(p1[0], p1[1], p1[2], p1[3]);
+      for (int c = 0; c < 4; ++c) {
+        const int at = (4 * p + c) * T + tid;
+        acc0_sh[at] = i == 0 ? p0[c] : hh::add_lazy(acc0_sh[at], p0[c], two_q);
+        acc1_sh[at] = i == 0 ? p1[c] : hh::add_lazy(acc1_sh[at], p1[c], two_q);
       }
     }
   }
-  if constexpr (ACC == kAccShared) {
 #pragma unroll
-    for (int p = 0; p < E / 4; ++p) {
-      uint32_t s0[4], s1[4];
+  for (int p = 0; p < E / 4; ++p) {
+    uint32_t s0[4], s1[4];
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s0[c] = acc0_sh[(4 * p + c) * T + tid];
-        s1[c] = acc1_sh[(4 * p + c) * T + tid];
-      }
-      o0[p] = make_uint4(s0[0], s0[1], s0[2], s0[3]);
-      o1[p] = make_uint4(s1[0], s1[1], s1[2], s1[3]);
+    for (int c = 0; c < 4; ++c) {
+      s0[c] = acc0_sh[(4 * p + c) * T + tid];
+      s1[c] = acc1_sh[(4 * p + c) * T + tid];
     }
+    o0[p] = make_uint4(s0[0], s0[1], s0[2], s0[3]);
+    o1[p] = make_uint4(s1[0], s1[1], s1[2], s1[3]);
   }
 }
 
@@ -257,26 +279,23 @@ int launch_small(const ExtProdArgs& a, cudaStream_t stream) {
 }
 
 // Sets the kernel's dynamic shared memory limit once per device (it may
-// exceed the 48 KB default) and launches it.
-template <int LOGN, int EB, Acc ACC>
+// exceed the 48 KB default) and launches it: rows of n 2^K values.
+template <int LOGN, int EB, int K = 0>
 int launch(const ExtProdArgs& a, cudaStream_t stream) {
   constexpr int n = 1 << LOGN;
-  constexpr int words = ((n + (n >> EB) + 3) & ~3) + (ACC == kAccShared ? 2 * n : 0);
-  constexpr size_t smem = words * sizeof(uint32_t);
+  constexpr size_t smem = (((n + (n >> EB) + 3) & ~3) + 2 * n) * sizeof(uint32_t);
   static unsigned configured = 0;
-  const cudaError_t err = hh::set_max_smem_once(ext_prod_kernel<LOGN, EB, ACC>, smem, configured);
+  const cudaError_t err = hh::set_max_smem_once(ext_prod_kernel<LOGN, EB, K>, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(a.R), static_cast<unsigned>(a.L_ext));
-  ext_prod_kernel<LOGN, EB, ACC><<<grid, n >> EB, smem, stream>>>(a);
+  const dim3 grid(static_cast<unsigned>(a.R) << K, static_cast<unsigned>(a.L_ext));
+  ext_prod_kernel<LOGN, EB, K><<<grid, n >> EB, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Several rows a block below n = 1024 (smallrow.cuh); 16 values a thread
-// and the accumulators in shared memory up to
-// n = 16384 (1024 threads there); at n = 32768 a block cannot hold both
-// the row and the accumulators, so 128 values a thread (256 threads, up to
-// 255 registers each: fewer values spilled) and the accumulators in the
-// output rows.
+// and the accumulators in shared memory up to n = 16384 (1024 threads
+// there); above it the n = 16384 program on sub-rows of 16384 (a block
+// cannot hold a longer row's accumulators beside its exchange buffer).
 int dispatch(const ExtProdArgs& a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.logn) {
@@ -295,17 +314,21 @@ int dispatch(const ExtProdArgs& a, void* stream) {
     case 9:
       return launch_small<9>(a, s);
     case 10:
-      return launch<10, 4, kAccShared>(a, s);
+      return launch<10, 4>(a, s);
     case 11:
-      return launch<11, 4, kAccShared>(a, s);
+      return launch<11, 4>(a, s);
     case 12:
-      return launch<12, 4, kAccShared>(a, s);
+      return launch<12, 4>(a, s);
     case 13:
-      return launch<13, 4, kAccShared>(a, s);
+      return launch<13, 4>(a, s);
     case 14:
-      return launch<14, 4, kAccShared>(a, s);
-    case 15:
-      return launch<15, 7, kAccOutput>(a, s);
+      return launch<14, 4>(a, s);
+    case 15:  // two sub-rows of 16384
+      return launch<14, 4, 1>(a, s);
+    case 16:  // four
+      return launch<14, 4, 2>(a, s);
+    case 17:  // eight
+      return launch<14, 4, 3>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -320,10 +343,11 @@ const char* hh_error_string(int code) {
 }
 
 // K3. digits: [R, l, n] strict; key: element (i, half, j, e) at
-// i*krs + half*khs + j*kls + e; tw/tw_sh: [L_ext, n]; q/two_q/neg_qinv:
-// [L_ext]; out: [2, R, L_ext, n]. n in [8, 32768]. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an n
-// out of range.
+// i*krs + half*khs + j*kls + e; tw/tw_sh: [L_ext, n], above n = 16384 the
+// regrouped [L_ext n / 16384, 16384] (context.sub_row_tables);
+// q/two_q/neg_qinv: [L_ext]; out: [2, R, L_ext, n]. n in [8, 131072].
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for an n out of range.
 int hh_ext_prod(const uint32_t* digits, const uint32_t* key, long long krs, long long khs,
                 long long kls, const uint32_t* tw, const uint32_t* tw_sh, const uint32_t* q,
                 const uint32_t* two_q, const uint32_t* neg_qinv, uint32_t* out, int R, int l,

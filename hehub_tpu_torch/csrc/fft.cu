@@ -45,11 +45,16 @@
 // half row is loaded coalesced, all loads in flight before the first store
 // to shared memory. At [64, 8192] that is 128 blocks of 512 threads, 72 KB
 // of shared memory each; every m in [512, 16384] takes the same code
-// (144 KB a block at 16384). The shared-memory limit is set once per
-// device and size, not per call. Rows of m <= 256 run on fft_small_kernel
-// instead, several rows a block in shared memory, no cluster. The kernel
-// is CUDA C++ rather than Triton: it needs clusters, distributed shared
-// memory and register-resident butterflies.
+// (144 KB a block at 16384). Above that a block's part would not fit, so
+// the cluster grows instead: 4 blocks a row at m = 32768 and 8 at 65536
+// (the codec's m = n/2 at n = 65536 and 131072), each still holding 8192
+// values, the last 2 or 3 stages pairing the parts through distributed
+// shared memory as the last one does at two blocks (the cluster size is
+// set at launch, not by __cluster_dims__). The shared-memory limit is set
+// once per device and size, not per call. Rows of m <= 256 run on
+// fft_small_kernel instead, several rows a block in shared memory, no
+// cluster. The kernel is CUDA C++ rather than Triton: it needs clusters,
+// distributed shared memory and register-resident butterflies.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -62,7 +67,13 @@ namespace {
 
 constexpr int kElemsLog = 3;  // 8 values per thread
 constexpr int kElems = 1 << kElemsLog;
-constexpr int kClusterLog = 1;  // blocks a row: 2
+// log2 of the blocks a row: 2 up to m = 16384, then as many as keep a
+// block's part at 8192 values (147 KB of shared memory): 4 at m = 32768,
+// 8 (the largest portable cluster) at m = 65536
+constexpr int kMaxPartLog = 13;
+__host__ __device__ constexpr int cluster_log(int logm) {
+  return logm > kMaxPartLog + 1 ? logm - kMaxPartLog : 1;
+}
 
 // (a + w b, a - w b) with w b = (br wr - bi wi, br wi + bi wr), every
 // operation rounded to nearest on its own; in place on (ar, ai), (br, bi).
@@ -141,20 +152,21 @@ __device__ __forceinline__ void groups_from(double (&vr)[kElems], double (&vi)[k
   }
 }
 
-// A cluster of CS = 2^kClusterLog blocks per row, block rank k holding the
-// contiguous part [k Q, (k + 1) Q) of the row, Q = m / CS. The first
-// log m - kClusterLog stages act within each part; the last kClusterLog
-// pair the parts: a unit of them is the CS values j + c Q (c < CS) of one
-// j < Q, whose stage log Q + sb pairs c with c + 2^sb under twiddle
-// j + (c mod 2^sb) Q. Block k takes the units j in [k Q / CS, (k + 1) Q / CS).
+// A cluster of CS = 2^CL blocks per row (CL = cluster_log(LOGM), the
+// cluster given at launch), block rank k holding the contiguous part
+// [k Q, (k + 1) Q) of the row, Q = m / CS. The first log m - CL stages act
+// within each part; the last CL pair the parts: a unit of them is the CS
+// values j + c Q (c < CS) of one j < Q, whose stage log Q + sb pairs c with
+// c + 2^sb under twiddle j + (c mod 2^sb) Q. Block k takes the units j in
+// [k Q / CS, (k + 1) Q / CS).
 template <int LOGM>
-__global__ void __cluster_dims__(1 << kClusterLog, 1, 1)
-    __launch_bounds__(1 << (LOGM - kClusterLog - kElemsLog))
+__global__ void __launch_bounds__(1 << (LOGM - cluster_log(LOGM) - kElemsLog))
     fft_row_kernel(const double* __restrict__ in_re, const double* __restrict__ in_im,
                    double* __restrict__ out_re, double* __restrict__ out_im,
                    const double* __restrict__ tw_re, const double* __restrict__ tw_im) {
-  constexpr int CS = 1 << kClusterLog;
-  constexpr int LOGQ = LOGM - kClusterLog;
+  constexpr int CL = cluster_log(LOGM);
+  constexpr int CS = 1 << CL;
+  constexpr int LOGQ = LOGM - CL;
   constexpr int Q = 1 << LOGQ;   // values a block
   constexpr int T = Q / kElems;  // threads a block
   extern __shared__ double2 smem_fft[];
@@ -163,7 +175,7 @@ __global__ void __cluster_dims__(1 << kClusterLog, 1, 1)
   cg::cluster_group cluster = cg::this_cluster();
   const int k = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
-  const long long row = blockIdx.x >> kClusterLog;
+  const long long row = blockIdx.x >> CL;
   const double* pre = in_re + (row << LOGM) + k * Q;
   const double* pim = in_im + (row << LOGM) + k * Q;
 
@@ -189,7 +201,7 @@ __global__ void __cluster_dims__(1 << kClusterLog, 1, 1)
   groups_from<LOGQ, 0, 0>(vr, vi, sre, sim, tid, tw_re, tw_im);
   cluster.sync();  // every part done and visible to the other blocks
 
-  // the last kClusterLog stages, on units read through distributed shared memory
+  // the last CL stages, on units read through distributed shared memory
   const double* rre[CS];
   const double* rim[CS];
 #pragma unroll
@@ -209,7 +221,7 @@ __global__ void __cluster_dims__(1 << kClusterLog, 1, 1)
       ui[c] = rim[c][pad(j)];
     }
 #pragma unroll
-    for (int sb = 0; sb < kClusterLog; ++sb) {
+    for (int sb = 0; sb < CL; ++sb) {
       const int h = 1 << sb;
 #pragma unroll
       for (int jl = 0; jl < h; ++jl) {
@@ -298,14 +310,15 @@ cudaError_t launch_small(const double* in_re, const double* in_im, double* out_r
 template <int LOGM>
 cudaError_t launch(const double* in_re, const double* in_im, double* out_re, double* out_im,
                    const double* tw_re, const double* tw_im, long long rows, cudaStream_t s) {
-  constexpr int Q = 1 << (LOGM - kClusterLog);
+  constexpr int CL = cluster_log(LOGM);
+  constexpr int Q = 1 << (LOGM - CL);
   constexpr size_t smem = 2 * static_cast<size_t>(pad(Q)) * sizeof(double);
   static unsigned configured = 0;
   const cudaError_t err = hh::set_max_smem_once(fft_row_kernel<LOGM>, smem, configured);
   if (err != cudaSuccess) return err;
-  fft_row_kernel<LOGM><<<static_cast<unsigned>(rows << kClusterLog), Q / kElems, smem, s>>>(
-      in_re, in_im, out_re, out_im, tw_re, tw_im);
-  return cudaGetLastError();
+  return hh::launch_clustered(fft_row_kernel<LOGM>, static_cast<unsigned>(rows << CL),
+                              Q / kElems, smem, 1u << CL, s, in_re, in_im, out_re, out_im,
+                              tw_re, tw_im);
 }
 
 }  // namespace
@@ -318,7 +331,7 @@ const char* hh_error_string(int code) {
 
 // in_re/in_im: [rows, 2^logm] bit-reversed input; out_re/out_im: [rows,
 // 2^logm] natural-order DFT (not aliasing the input); tw_re/tw_im:
-// [2^logm - 1] compact per-stage twiddles. logm in [2, 14]. Returns
+// [2^logm - 1] compact per-stage twiddles. logm in [2, 16]. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a logm
 // out of range.
 int hh_fft(const double* in_re, const double* in_im, double* out_re, double* out_im,
@@ -351,6 +364,10 @@ int hh_fft(const double* in_re, const double* in_im, double* out_re, double* out
       return launch<13>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
     case 14:
       return launch<14>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 15:
+      return launch<15>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
+    case 16:
+      return launch<16>(in_re, in_im, out_re, out_im, tw_re, tw_im, rows, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,5 +1,6 @@
 // K1 and K2: the forward and inverse negacyclic NTT of [rows, n] uint32
-// residue rows, two thread blocks per row.
+// residue rows, two thread blocks per row up to n = 32768 (2 n / 32768
+// above it).
 //
 // K1 (hh_ntt_fwd) replaces the TPU kernel
 // hehub_tpu/ops/pallas/ntt_pallas.py::_fwd_kernel (+ fwd_stage_chain), K2
@@ -35,6 +36,29 @@
 // 2048 / n whole rows and runs their stages in shared memory, 256 threads,
 // no cluster (ntt_small_kernel, smallrow.cuh).
 //
+// Rows of n = 2^k 32768 (65536 and 131072) are longer than two blocks of
+// at most 1024 threads hold at 16 values a thread. They are split into 2^k
+// sub-rows of 32768: the first k forward stages pair whole sub-rows, and
+// after them sub-row j is an ordinary 32768-point row under its own table
+// row sub_j[2^s + i] = tw[2^(s+k) + j 2^s + i] (Context's tables regrouped
+// for sub-rows of 32768, [L 2^k, 32768], context.sub_row_tables; the
+// inverse chain's first 15 stages act within sub-rows under the same
+// regrouping). K1 runs 2^(k+1)
+// blocks a row, one per half sub-row g: each reads the 2^(k+1) values of
+// its column in every half sub-row (from L2 after the first block of the
+// row) and computes the k + 1 stages that pair them only along the branch
+// that ends in its own half (hh::fwd_cross), as the two blocks of a
+// 32768-point row already did for its one such stage; then the sub-row's
+// stages 1 .. 14 run as at n = 32768, under the regrouped table. K2 runs a
+// cluster of 2^(k+1) blocks a row (4 or 8): each runs its half sub-row's
+// first 14 stages under the regrouped table, and the last k + 1 stages,
+// which pair the half sub-rows (the last one folding n^-1), run across the
+// cluster through distributed shared memory on columns of 2^(k+1) values
+// (hh::inv_cross), as the two-block cluster does at n = 32768. So every
+// butterfly keeps its operands and the output stays bitwise equal to the
+// plain chains; ops/ntt.py's ntt_fwd_split / ntt_inv_split emulate the
+// split in PyTorch.
+//
 // The row's limb is row % L: data is a contiguous [..., L, n] tensor.
 // Output is bitwise equal to the plain chains ntt_fwd / ntt_inv of
 // hehub_tpu_torch/ops/ntt.py (same butterflies, same operands).
@@ -58,7 +82,7 @@ constexpr int kElemsLog = 4;
 struct NttArgs {
   const uint32_t* in;
   uint32_t* out;
-  const uint32_t* tw;
+  const uint32_t* tw;  // [L 2^k, n]: the regrouped tables of rows of n 2^k
   const uint32_t* tw_sh;
   const uint32_t* q;
   const uint32_t* two_q;
@@ -75,64 +99,83 @@ __host__ __device__ constexpr int min_blocks(int threads) {
   return threads >= 1024 ? 1 : 1024 / threads;
 }
 
-// K1: block 2 r + h works on half h of row r, values [h n/2, (h + 1) n/2),
-// by T = n / 2^(EB+1) threads. Stage 0 pairs the halves, x[j] with
-// x[j + n/2] under tw[1]: the block loads both (coalesced, at stride T; the
-// other block of the row reads the same lines, from L2) and keeps its
-// half's results, then runs stages 1 .. log n - 1 on its half in registers
-// and stores the half, coalesced.
-template <int LOGN, int EB>
+// K1: block (r, g), g < U = 2^(K+1), works on the half sub-row g of row r
+// (a row of n 2^K values, n = 2^LOGN; sub-row j = g / 2, half h = g mod 2),
+// values [g H, (g + 1) H), H = n / 2, by T = H / 2^EB threads. The first
+// K + 1 stages pair whole half sub-rows (at K = 0 only stage 0, the halves
+// x[j], x[j + n/2] under tw[1]): the block loads its column of all U parts
+// (coalesced, at stride T; the other blocks of the row read the same lines,
+// from L2), runs those stages along the branch that ends in part g
+// (hh::fwd_cross), then runs the sub-row's stages 1 .. log n - 1 on its half
+// in registers under the sub-row's table (row limb 2^K + j of the
+// regrouped tw, whose rows also hold the cross stages' twiddles,
+// hh::cross_twiddle) and stores the half, coalesced.
+template <int LOGN, int EB, int K>
 __global__ void __launch_bounds__(1 << (LOGN - 1 - EB), min_blocks(1 << (LOGN - 1 - EB)))
     ntt_fwd_kernel(const NttArgs a) {
-  constexpr int n = 1 << LOGN, H = n / 2, E = 1 << EB, T = H / E;
+  constexpr int n = 1 << LOGN, H = n / 2, E = 1 << EB, T = H / E, U = 2 << K;
+  constexpr long long NF = static_cast<long long>(n) << K;  // the row
   extern __shared__ uint4 smem_fwd[];
   const int tid = threadIdx.x;
-  const int h = static_cast<int>(blockIdx.x & 1);
-  const unsigned r = blockIdx.x >> 1;
+  const int g = static_cast<int>(blockIdx.x & (U - 1));
+  const int h = g & 1;
+  const unsigned r = blockIdx.x >> (K + 1);
   const int limb = static_cast<int>(r % a.L);  // 32-bit: no division call
   const long long row = r;
-  const uint32_t* tw = a.tw + static_cast<long long>(limb) * n;
-  const uint32_t* tw_sh = a.tw_sh + static_cast<long long>(limb) * n;
+  const uint32_t* rows = a.tw + (static_cast<long long>(limb) << K) * n;  // the limb's tables
+  const uint32_t* rows_sh = a.tw_sh + (static_cast<long long>(limb) << K) * n;
+  const uint32_t* tw = rows + (g >> 1) * n;  // sub-row g / 2's
+  const uint32_t* tw_sh = rows_sh + (g >> 1) * n;
   const uint32_t q = a.q[limb], two_q = a.two_q[limb];
-  const uint32_t w = __ldg(tw + 1), w_sh = __ldg(tw_sh + 1);
-  const uint32_t* src = a.in + row * n + tid;
+  uint32_t w[K + 1], w_sh[K + 1];  // the cross stages' twiddles on g's branch
+#pragma unroll
+  for (int s = 0; s <= K; ++s) {
+    const int at = (1 << s) + (g >> (K + 1 - s));
+    w[s] = hh::cross_twiddle<K>(rows, n, at);
+    w_sh[s] = hh::cross_twiddle<K>(rows_sh, n, at);
+  }
+  const uint32_t* src = a.in + row * NF + tid;
   uint32_t v[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) {
-    const uint32_t lo = __ldg(src + e * T);
-    const uint32_t wh = hh::shoup_mul_lazy(__ldg(src + H + e * T), w, w_sh, q);
-    v[e] = h ? hh::sub_lazy(lo, wh, two_q) : hh::add_lazy(lo, wh, two_q);
+    uint32_t y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) y[u] = __ldg(src + u * H + e * T);
+    v[e] = hh::fwd_cross<K + 1>(y, g, w, w_sh, q, two_q);
   }
   hh::fwd_stages_reg<LOGN - 1, EB>(v, reinterpret_cast<uint32_t*>(smem_fwd), tid, tw, tw_sh, q,
                                    two_q, 2 + h);
   // through shared memory once more, to stride T, so that the stores coalesce
   hh::exchange<EB, 0, LOGN - 1 - EB>(v, reinterpret_cast<uint32_t*>(smem_fwd), tid);
-  uint32_t* dst = a.out + row * n + h * H + tid;
+  uint32_t* dst = a.out + row * NF + g * H + tid;
 #pragma unroll
   for (int e = 0; e < E; ++e) dst[e * T] = v[e];
 }
 
-// K2: a cluster of two blocks a row, block rank h working on half h by
-// T = n / 2^(EB+1) threads. Stages 0 .. log n - 2 act within the halves;
-// each block runs its half's in registers, leaves the result in its shared
-// memory, and after a cluster barrier takes the last stage (the halves
-// paired, n^-1 folded) for the pairs j, j + n/2 with j in
-// [h n/4, (h + 1) n/4), reading both halves through distributed shared
-// memory and writing both results.
-template <int LOGN, int EB>
-__global__ void __cluster_dims__(2, 1, 1)
-    __launch_bounds__(1 << (LOGN - 1 - EB), min_blocks(1 << (LOGN - 1 - EB)))
+// K2: a cluster of U = 2^(K+1) blocks a row (launched so), block rank g
+// working on half sub-row g as K1's block g, by T = H / 2^EB threads. The
+// sub-row's stages 0 .. log n - 2 act within the half; each block runs its
+// half's in registers under the sub-row's table row and leaves the result
+// in its shared memory. After a cluster barrier the last K + 1 stages, which
+// pair the half sub-rows (the last folding n^-1), run on columns c of the U
+// parts: block g takes c in [g H/U, (g + 1) H/U), reads the U values of each
+// through distributed shared memory (hh::inv_cross) and writes all U
+// results.
+template <int LOGN, int EB, int K>
+__global__ void __launch_bounds__(1 << (LOGN - 1 - EB), min_blocks(1 << (LOGN - 1 - EB)))
     ntt_inv_kernel(const NttArgs a) {
-  constexpr int n = 1 << LOGN, H = n / 2, E = 1 << EB, T = H / E;
+  constexpr int n = 1 << LOGN, H = n / 2, E = 1 << EB, T = H / E, U = 2 << K;
+  constexpr long long NF = static_cast<long long>(n) << K;
   extern __shared__ uint4 smem_inv[];
   uint32_t* x = reinterpret_cast<uint32_t*>(smem_inv);
   cg::cluster_group cluster = cg::this_cluster();
-  const int h = static_cast<int>(cluster.block_rank());
+  const int g = static_cast<int>(cluster.block_rank());
+  const int h = g & 1;
   const int tid = threadIdx.x;
-  const unsigned r = blockIdx.x >> 1;
+  const unsigned r = blockIdx.x >> (K + 1);
   const int limb = static_cast<int>(r % a.L);  // 32-bit: no division call
   const long long row = r;
-  const uint4* src = reinterpret_cast<const uint4*>(a.in + row * n + h * H) + tid * (E / 4);
+  const uint4* src = reinterpret_cast<const uint4*>(a.in + row * NF + g * H) + tid * (E / 4);
   uint32_t v[E];
 #pragma unroll
   for (int p = 0; p < E / 4; ++p) {
@@ -143,25 +186,36 @@ __global__ void __cluster_dims__(2, 1, 1)
     v[4 * p + 3] = u.w;
   }
   const uint32_t q = a.q[limb], two_q = a.two_q[limb];
-  hh::inv_stages_reg<LOGN - 1, EB>(v, x, tid, a.tw + static_cast<long long>(limb) * n,
-                                   a.tw_sh + static_cast<long long>(limb) * n, q, two_q, 2 + h);
+  const uint32_t* rows = a.tw + (static_cast<long long>(limb) << K) * n;  // the limb's tables
+  const uint32_t* rows_sh = a.tw_sh + (static_cast<long long>(limb) << K) * n;
+  hh::inv_stages_reg<LOGN - 1, EB>(v, x, tid, rows + (g >> 1) * n, rows_sh + (g >> 1) * n, q,
+                                   two_q, 2 + h);
   __syncthreads();  // the last exchange's reads are done
 #pragma unroll
   for (int e = 0; e < E; ++e) x[e * T + tid] = v[e];
-  cluster.sync();  // both halves done and visible to the other block
-  const uint32_t* x0 = cluster.map_shared_rank(x, 0) + h * (H / 2) + tid;
-  const uint32_t* x1 = cluster.map_shared_rank(x, 1) + h * (H / 2) + tid;
-  const uint32_t w = a.w_last[limb], w_sh = a.w_last_sh[limb];
-  const uint32_t n_inv = a.n_inv[limb], n_inv_sh = a.n_inv_sh[limb];
-  uint32_t* dst = a.out + row * n + h * (H / 2) + tid;
+  cluster.sync();  // every part done and visible to the other blocks
+  const uint32_t* xs[U];
 #pragma unroll
-  for (int k = 0; k < E / 2; ++k) {
-    const uint32_t lo = x0[k * T];
-    const uint32_t hi = x1[k * T];
-    dst[k * T] = hh::shoup_mul_lazy(lo + hi, n_inv, n_inv_sh, q);
-    dst[H + k * T] = hh::shoup_mul_lazy(lo + two_q - hi, w, w_sh, q);
+  for (int u = 0; u < U; ++u) xs[u] = cluster.map_shared_rank(x, u) + g * (H / U) + tid;
+  uint32_t w[U], w_sh[U];  // table entries 2 .. U - 1: the unfolded cross stages
+#pragma unroll
+  for (int u = 2; u < U; ++u) {
+    w[u] = hh::cross_twiddle<K>(rows, n, u);
+    w_sh[u] = hh::cross_twiddle<K>(rows_sh, n, u);
   }
-  // the other block may still read this block's half; nothing is live
+  const uint32_t w_last = a.w_last[limb], w_last_sh = a.w_last_sh[limb];
+  const uint32_t n_inv = a.n_inv[limb], n_inv_sh = a.n_inv_sh[limb];
+  uint32_t* dst = a.out + row * NF + g * (H / U) + tid;
+#pragma unroll
+  for (int k = 0; k < E / U; ++k) {
+    uint32_t y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) y[u] = xs[u][k * T];
+    hh::inv_cross<K + 1>(y, w, w_sh, q, two_q, w_last, w_last_sh, n_inv, n_inv_sh);
+#pragma unroll
+    for (int u = 0; u < U; ++u) dst[u * H + k * T] = y[u];
+  }
+  // the other blocks may still read this block's part; nothing is live
   // across the barrier (values held across it went to the stack)
   cluster.sync();
 }
@@ -224,17 +278,19 @@ int launch_small(const NttArgs& a, long long rows, cudaStream_t stream) {
 }
 
 // Sets the kernel's dynamic shared memory limit once per device (it may
-// exceed the 48 KB default) and launches it on 2 `rows` blocks.
-template <bool INV, int LOGN>
+// exceed the 48 KB default) and launches it on 2^(K+1) `rows` blocks, K2 in
+// clusters of 2^(K+1): rows of n 2^K values.
+template <bool INV, int LOGN, int K = 0>
 int launch(const NttArgs& a, long long rows, cudaStream_t stream) {
   constexpr int EB = kElemsLog;
   constexpr size_t smem = hh::padded<EB>(1 << (LOGN - 1)) * sizeof(uint32_t);
-  void (*kernel)(NttArgs) = INV ? ntt_inv_kernel<LOGN, EB> : ntt_fwd_kernel<LOGN, EB>;
+  void (*kernel)(NttArgs) = INV ? ntt_inv_kernel<LOGN, EB, K> : ntt_fwd_kernel<LOGN, EB, K>;
   static unsigned configured = 0;
   const cudaError_t err = hh::set_max_smem_once(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(2 * rows), 1 << (LOGN - 1 - EB), smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(hh::launch_clustered(kernel, static_cast<unsigned>(rows << (K + 1)),
+                                               1u << (LOGN - 1 - EB), smem, INV ? 2u << K : 1u,
+                                               stream, a));
 }
 
 template <bool INV>
@@ -267,6 +323,10 @@ int dispatch(const NttArgs& a, long long rows, int logn, void* stream) {
       return launch<INV, 14>(a, rows, s);
     case 15:
       return launch<INV, 15>(a, rows, s);
+    case 16:  // two sub-rows of 32768
+      return launch<INV, 15, 1>(a, rows, s);
+    case 17:  // four sub-rows of 32768
+      return launch<INV, 15, 2>(a, rows, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -281,9 +341,10 @@ const char* hh_error_string(int code) {
 }
 
 // K1. in/out: [rows, n] (row r under limb r % L), 16-byte aligned;
-// tw/tw_sh: [L, n]; q/two_q: [L]; n = 2^logn in [8, 32768]. Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for an n
-// out of range.
+// tw/tw_sh: [L, n], above n = 32768 the regrouped [L n / 32768, 32768]
+// (context.sub_row_tables); q/two_q: [L]; n = 2^logn in [8, 131072].
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// an n out of range.
 int hh_ntt_fwd(const uint32_t* in, uint32_t* out, const uint32_t* tw, const uint32_t* tw_sh,
                const uint32_t* q, const uint32_t* two_q, long long rows, int L, int logn,
                void* stream) {

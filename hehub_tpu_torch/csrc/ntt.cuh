@@ -199,4 +199,73 @@ __device__ __forceinline__ void inv_stages_reg(uint32_t (&v)[1 << EB], uint32_t*
   inv_groups_from<LOGN, EB, 0, 0>(v, x, tid, tw, tw_sh, q, two_q, tw_mul);
 }
 
+// Rows cut into 2^S equal parts (K1: half sub-rows of 32768 values, K3/K4:
+// sub-rows of 16384, as the rows above those lengths are split): the first S
+// forward stages pair whole parts, stage s part u with u + 2^(S-1-s) under
+// tw[2^s + (u >> (S - s))]. fwd_cross runs them on one column of the parts,
+// y[u] the value at the same offset in part u, and keeps only the branch
+// that ends in part g, the caller's: at stage s the values still held share
+// the top s bits of g, and bit S-1-s of g picks the sum or the difference.
+// w/w_sh[s] = tw/tw_sh[2^s + (g >> (S - s))]. Returns part g's value; the
+// butterflies and their operands are those of the plain chain ntt_fwd.
+template <int S>
+__device__ __forceinline__ uint32_t fwd_cross(uint32_t (&y)[1 << S], int g, const uint32_t* w,
+                                              const uint32_t* w_sh, uint32_t q, uint32_t two_q) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    constexpr int kTop = S - 1;
+    const int half = 1 << (kTop - s);
+    const bool upper = (g >> (kTop - s)) & 1;
+#pragma unroll
+    for (int u = 0; u < half; ++u) {
+      const uint32_t wh = shoup_mul_lazy(y[u + half], w[s], w_sh[s], q);
+      y[u] = upper ? sub_lazy(y[u], wh, two_q) : add_lazy(y[u], wh, two_q);
+    }
+  }
+  return y[0];
+}
+
+// Entry idx < 2P of a limb's compact twiddle table, read from its P rows of
+// a regrouped table (context.sub_row_tables; `rows` points at the first):
+// entry 0 of row idx below P, entry 1 of row idx - P from P on. P = 1 reads
+// entry idx of the compact table itself.
+template <int LOGP>
+__device__ __forceinline__ uint32_t cross_twiddle(const uint32_t* rows, int n, int idx) {
+  constexpr int P = 1 << LOGP;
+  return __ldg(idx < P ? rows + static_cast<long long>(idx) * n
+                       : rows + static_cast<long long>(idx - P) * n + 1);
+}
+
+// The last S inverse stages of a row of 2^S parts, which pair whole parts,
+// on one column y[u] of them: stage s pairs part u with u + 2^s, in block
+// i = u >> (s + 1) of 2^S >> (s + 1) blocks, under tw[(2^S >> (s + 1)) + i]
+// (w/w_sh indexed by that table index, entries 2 .. 2^S - 1), and the last
+// stage folds n^-1 (w_last, n_inv), as ntt_inv's. Every value is kept.
+template <int S>
+__device__ __forceinline__ void inv_cross(uint32_t (&y)[1 << S], const uint32_t* w,
+                                          const uint32_t* w_sh, uint32_t q, uint32_t two_q,
+                                          uint32_t w_last, uint32_t w_last_sh, uint32_t n_inv,
+                                          uint32_t n_inv_sh) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int t = 1 << s;
+    const int blocks = (1 << S) >> (s + 1);
+#pragma unroll
+    for (int i = 0; i < blocks; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < t; ++jj) {
+        const int lo = 2 * t * i + jj, hi = lo + t;
+        const uint32_t a = y[lo], b = y[hi];
+        if (s == S - 1) {
+          y[lo] = shoup_mul_lazy(a + b, n_inv, n_inv_sh, q);
+          y[hi] = shoup_mul_lazy(a + two_q - b, w_last, w_last_sh, q);
+        } else {
+          y[lo] = add_lazy(a, b, two_q);
+          y[hi] = shoup_mul_lazy(a + two_q - b, w[blocks + i], w_sh[blocks + i], q);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace hh

@@ -47,11 +47,15 @@ LAUNCHES: Dict[str, int] = {
 # the same launches by their rows ({rows: launches}; R for the external products)
 LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
 
-# every ring the package takes (n >= 8) up to the largest with a standard
-# 128-bit budget; below n = 1024 the sources launch their instantiations
-# that hold several rows a block (csrc/smallrow.cuh, fft.cu's
-# fft_small_kernel)
-MIN_N, MAX_N = 8, 32768
+# the rings the kernels take: every power of two from 8 to 131072; below
+# n = 1024 the sources launch their instantiations that hold several rows a
+# block (csrc/smallrow.cuh, fft.cu's fft_small_kernel); longer rows than
+# NTT_SUB_N (K1, K2) or EXT_SUB_N (K3, K4) are split into sub-rows of that
+# length (csrc/ntt.cu's and extprod.cu's headers): those launches take
+# Context's twiddle tables regrouped for the sub-rows (context.sub_table,
+# sub_row_tables) in place of the compact ones
+MIN_N, MAX_N = 8, 131072
+NTT_SUB_N, EXT_SUB_N = 32768, 16384
 # the FFT's length m = n/2 of the codec's ring dimension n
 MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_N // 2
 
@@ -189,6 +193,12 @@ def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+def _table_shape(L: int, n: int, sub_n: int):
+    """The twiddle tables' shape for L limbs of rows of n: [L, n], or, above
+    sub_n, regrouped for sub-rows of sub_n: [L n / sub_n, sub_n]."""
+    return (L, n) if n <= sub_n else (L * n // sub_n, sub_n)
+
+
 def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor:
     """Check and launch hh_<kind> on x [..., L, n]; `per_limb` are the [L, 1]
     constant tables in the C function's argument order."""
@@ -198,8 +208,8 @@ def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor
     _require(x, "x", dev)
     if x.data_ptr() % 16:
         raise ValueError("x must start 16-byte aligned (K2 loads its rows as uint4)")
-    _require(tw, "tw", dev, (L, n))
-    _require(tw_sh, "tw_sh", dev, (L, n))
+    _require(tw, "tw", dev, _table_shape(L, n, NTT_SUB_N))
+    _require(tw_sh, "tw_sh", dev, _table_shape(L, n, NTT_SUB_N))
     for i, c in enumerate(per_limb):
         _require(c, f"per-limb table {i}", dev, (L, 1))
     out = torch.empty_like(x)
@@ -218,13 +228,15 @@ def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor
 
 def ntt_fwd(x: torch.Tensor, tw, tw_sh, q, two_q) -> torch.Tensor:
     """K1: forward NTT of x [..., L, n] (int32 bits of lazy residues) under
-    per-limb tables tw/tw_sh [L, n] and q/two_q [L, 1]."""
+    per-limb tables tw/tw_sh [L, n] (above n = NTT_SUB_N regrouped, [L n /
+    NTT_SUB_N, NTT_SUB_N]) and q/two_q [L, 1]."""
     return _launch_ntt("ntt_fwd", x, tw, tw_sh, (q, two_q))
 
 
 def ntt_inv(x: torch.Tensor, tw, tw_sh, q, two_q, w_last, w_last_sh, n_inv, n_inv_sh):
-    """K2: inverse NTT of x [..., L, n]; the last-stage constants
-    w_last/w_last_sh/n_inv/n_inv_sh are [L, 1] like q/two_q."""
+    """K2: inverse NTT of x [..., L, n]; tw/tw_sh as ntt_fwd's, the
+    last-stage constants w_last/w_last_sh/n_inv/n_inv_sh [L, 1] like
+    q/two_q."""
     return _launch_ntt("ntt_inv", x, tw, tw_sh, (q, two_q, w_last, w_last_sh, n_inv, n_inv_sh))
 
 
@@ -249,7 +261,8 @@ def _launch_ext_prod(kind: str, digits: torch.Tensor, dig_strides, D: int, key: 
         raise ValueError(f"key shape {tuple(key.shape)} does not fit {D} digit rows of length {n}")
     _require_rows(key, "key", dev)
     L_ext = key.shape[2]
-    shapes = ((L_ext, n), (L_ext, n), (L_ext, 1), (L_ext, 1), (L_ext, 1))
+    tw_shape = _table_shape(L_ext, n, EXT_SUB_N)
+    shapes = (tw_shape, tw_shape, (L_ext, 1), (L_ext, 1), (L_ext, 1))
     for t, nm, shp in zip(tabs, ("tw", "tw_sh", "q", "two_q", "neg_qinv"), shapes):
         _require(t, nm, dev, shp)
     out = torch.empty((2, R, L_ext, n), dtype=torch.int32, device=dev)
@@ -271,8 +284,9 @@ def ext_prod(digits: torch.Tensor, key: torch.Tensor, tw, tw_sh, q, two_q, neg_q
 
     digits: [R, l, n] strict coefficient-form digits; key: [rows >= l, 2,
     L_ext, n] Montgomery-domain RGSW rows (any strides, unit stride on the
-    last axis); tw/tw_sh [L_ext, n], q/two_q/neg_qinv [L_ext, 1] of the
-    extended limbs. Returns out [2, R, L_ext, n]: c0 = out[0], c1 = out[1]."""
+    last axis); tw/tw_sh [L_ext, n] (above n = EXT_SUB_N regrouped, [L_ext n
+    / EXT_SUB_N, EXT_SUB_N]), q/two_q/neg_qinv [L_ext, 1] of the extended
+    limbs. Returns out [2, R, L_ext, n]: c0 = out[0], c1 = out[1]."""
     if digits.dim() != 3:
         raise ValueError("ext_prod takes digits [R, l, n]")
     _require(digits, "digits", digits.device)

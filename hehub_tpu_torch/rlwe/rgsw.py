@@ -185,10 +185,8 @@ def ext_prod(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
     l, n = poly.limb_count, poly.dimension
     batch = poly.batch_shape
     d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly))
-    tabs = [
-        ctx.device_rows(nm, ids_ext, dev, torch.int32)
-        for nm in ("tw_fwd", "tw_fwd_sh", "q", "two_q", "neg_qinv")
-    ]
+    names = nttmod.EXT_SPLIT_TABLES if n > kernels.EXT_SUB_N else nttmod.EXT_TABLES
+    tabs = [ctx.device_rows(nm, ids_ext, dev, torch.int32) for nm in names]
     if rgsw.alpha == 1:
         out = kernels.ext_prod(nttmod.to_u32_bits(d.data.reshape(-1, l, n)),
                                nttmod.to_u32_bits(rgsw.data[:l]), *tabs)

@@ -79,10 +79,10 @@ def test_wrappers_reject_other_devices_and_sizes():
         tn.ntt(ctx, meta, IDS)
     with pytest.raises(ValueError):
         tn.intt(ctx, meta, IDS)
-    for n in (4, 65536, 3000):
+    for n in (4, 3000, 1 << 18):
         with pytest.raises(ValueError):
             kernels._log_n(n)
-    assert [kernels._log_n(n) for n in (8, 512, 32768)] == [3, 9, 15]
+    assert [kernels._log_n(n) for n in (8, 512, 32768, 65536, 131072)] == [3, 9, 15, 16, 17]
 
 
 def test_u32_bits_round_trip():

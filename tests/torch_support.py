@@ -34,10 +34,13 @@ def as_numpy(t: torch.Tensor) -> np.ndarray:
 
 def ext_prod_case(n, num_levels, num_special, R, device, seed):
     """Random inputs of the fused external-product kernels at n, on
-    `device`: (ctx, ids_ext, kernel tables, strict digits [R, l, n] (K3),
-    converted lazy digits [R, D, L_ext, n] with D = ceil(l / 2) (K4), key
-    [l, 2, L_ext, n] lazy Montgomery-domain values), all int64."""
+    `device`: (ctx, ids_ext, kernel tables (regrouped above
+    kernels.EXT_SUB_N), strict digits [R, l, n] (K3), converted lazy digits
+    [R, D, L_ext, n] with D = ceil(l / 2) (K4), key [l, 2, L_ext, n] lazy
+    Montgomery-domain values), all int64."""
+    from hehub_tpu_torch import kernels
     from hehub_tpu_torch.core import context as tctx
+    from hehub_tpu_torch.ops import ntt as tn
 
     ctx = tctx.make_context(tctx.create_ckks_params(
         n, 28, num_levels, use_security_budget=False, num_special=num_special))
@@ -47,8 +50,8 @@ def ext_prod_case(n, num_levels, num_special, R, device, seed):
     strict = np.stack([rng.integers(0, q, (R, n)) for q in ctx.moduli_of(ids)], axis=1)
     conv = lazy_residues(rng, (R, -(-num_levels // 2)), ctx.moduli_of(ids_ext), n)
     key = lazy_residues(rng, (num_levels, 2), ctx.moduli_of(ids_ext), n)
-    tabs = [ctx.device_rows(nm, ids_ext, device, torch.int32)
-            for nm in ("tw_fwd", "tw_fwd_sh", "q", "two_q", "neg_qinv")]
+    names = tn.EXT_SPLIT_TABLES if n > kernels.EXT_SUB_N else tn.EXT_TABLES
+    tabs = [ctx.device_rows(nm, ids_ext, device, torch.int32) for nm in names]
     to = lambda a: torch.from_numpy(a.astype(np.int64)).to(device)  # noqa: E731
     return ctx, ids_ext, tabs, to(strict), to(conv), to(key)
 
