@@ -3,8 +3,8 @@
 kernels, holds each against its plain PyTorch version at the shapes of the
 paths that run it, then drives the CKKS main path, the hybrid
 key-switching path, the small-ring path, the circuits path, BGV, the
-bootstrapped TFHE NAND and the CKKS bootstrap end to end and checks their
-results.
+bootstrapped TFHE NAND, the CKKS bootstrap, the large ring and the
+multi-rank paths (parallel/*) end to end and checks their results.
 
     python3 chip_smoke.py
 
@@ -111,7 +111,32 @@ Phases, each printing its own lines:
      the mults and the rotate; K1-K5 at the
      path's shapes and at n=131072 (K5 at m=65536) bitwise against their
      plain versions and timed as in phase 3 (`*_large` records);
-  12. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
+  12. parallel/* at the main path's width (n=16384, 7+1 limbs, batch 64,
+     keys made on the card from a seeded generator in every process alike):
+     (a) the sharded mult + relin + rescale on a 1x1 mesh in an NCCL world
+     of one rank (a limb group of one rank runs no collective), and NCCL's
+     all_gather and broadcast of the step's input on the card, which must
+     return it unchanged; (b) two ranks sharing the card over gloo: the mult step on
+     the (2,1) and (1,2) meshes, the alpha=2 hybrid configuration (12+2
+     limbs) on (1,2) (K4), rotate(1) on (1,2), and the sharded NTT/INTT at
+     D=2 on [64, 7, 16384]; (c) four ranks sharing the card: the meshes
+     (4,1), (2,2), (1,4) and the sharded NTT at D=4; every shard bitwise
+     (sha256) the unsharded port's in this process, and K1, K2, K3, K4 and
+     the stage kernel launched inside the ranks; then
+     entry.dryrun_multichip(8) as a user calls it: eight ranks on the card
+     (gloo, since they share it), each asserting its shards bitwise, with
+     K1, K2, K3 and the stage kernel launched in them; (d) PipelinedSquaringChain
+     of depth 3 and the square -> rotate(3) -> halve Pipeline over
+     [cuda:0] * 3, 5 microbatches of batch 64, bitwise the sequential
+     chains, decoded within 3 x 2^-8 of v^8 (and the rotate's bound);
+     (e) ops.ntt.ntt / intt at n=262144 on [2, 4, 262144] (the stage
+     kernel, K1 / K2 on parts of 131072) bitwise the plain chains; times:
+     each sharded step per rank (CUDA events) beside the single-process
+     step, each collective's bytes and host seconds, pipelined against
+     sequential, the stage kernel timed as in phase 3 at the sharded NTT's
+     and at n=262144's shapes; the shared-card lines say they are not
+     multi-GPU numbers;
+  13. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
      `launch_weighted_kernel_ms`; then the five small-ring records
      `*_small_n` / `fft_small_m`, whose launches are the small-ring
@@ -119,8 +144,10 @@ Phases, each printing its own lines:
      TFHE path's; then `ntt_fwd_boot`, `ntt_inv_boot`, `ext_prod_boot`,
      `fft_boot`, whose launches are phase 10's; then `ntt_fwd_large`,
      `ntt_inv_large`, `ext_prod_large`, `ext_prod_conv_large`, `fft_large`,
-     whose launches are phase 11's, each with its n=131072 numbers); the
-     card line; last, the result line {"ok": true, "device": {...}}.
+     whose launches are phase 11's, each with its n=131072 numbers; then
+     `ntt_stage`, the stage kernel, whose launches are phase 12's, and
+     `ntt_fwd_staged` / `ntt_inv_staged`, K1 / K2 at n=262144); the card
+     line; last, the result line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
 A kernel-only time is read from a window of the profiler's trace that
@@ -132,6 +159,7 @@ than half of the `kernels` line's records lack it.
 
 import copy
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -142,18 +170,23 @@ import time
 import numpy as np
 import torch
 
-from hehub_tpu_torch import config, kernels
+from hehub_tpu_torch import config, entry, kernels
 from hehub_tpu_torch.circuits import bootstrap as bs
 from hehub_tpu_torch.circuits import linear_algebra as la
 from hehub_tpu_torch.circuits import poly_eval as pe
-from hehub_tpu_torch.core.context import create_bgv_params, create_ckks_params, make_context
+from hehub_tpu_torch.core.context import (RlweParams, create_bgv_params, create_ckks_params,
+                                          make_context)
 from hehub_tpu_torch.core.rns import RnsPoly
 from hehub_tpu_torch.models import bgv, ckks, tfhe
 from hehub_tpu_torch.ops import fft as fftmod
 from hehub_tpu_torch.ops import ntt as nttmod
+from hehub_tpu_torch.parallel import mesh as pmesh
+from hehub_tpu_torch.parallel import ntt_sharded
+from hehub_tpu_torch.parallel import pipeline as pipemod
 from hehub_tpu_torch.rlwe import keys as keys_mod
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
+from hehub_tpu_torch.utils import hostmath as hm
 from hehub_tpu_torch.utils import noise
 from hehub_tpu_torch.utils import serialization
 from hehub_tpu_torch.utils.profiling import (ProfilerFault, device_time, device_trace,
@@ -247,6 +280,32 @@ MAX_ERR_LARGE_ROT = 2.0**-5
 LARGE_REPLAY_ROWS = 1
 LARGEST_N = 131072
 LARGEST_SHAPES = dict(ntt=(2, 8), ext=(2, 8, 2), fft=3)  # [rows, L]; (R, l, specials); rows
+# Phase 12, parallel/*: worlds of ranks (ranks, cases), each case a mesh step
+# ("mult", "hybrid_mult", "rotate" on a (batch, limb) mesh) or the sharded
+# NTT over D ranks; every rank on the one card (mesh.backend_for: NCCL for
+# the one rank, gloo for ranks that share the card); then the dryrun twin
+PAR_SEED = 71
+PAR_WORLDS = (
+    (1, (("mult", (1, 1)),)),
+    (2, (("mult", (2, 1)), ("mult", (1, 2)), ("hybrid_mult", (1, 2)), ("rotate", (1, 2)),
+         ("ntt", 2))),
+    (4, (("mult", (4, 1)), ("mult", (2, 2)), ("mult", (1, 4)), ("ntt", 4))),
+)
+DRYRUN_RANKS = 8
+PAR_TIMEOUT = 120.0
+SHARED_CARD = "ranks sharing one card, gloo through host memory: not a multi-GPU number"
+# the pipelines: depth, microbatches of BATCH, the heterogeneous rotation,
+# and the inputs' scale: at 2^30 the squarings' scale stays near 2^30
+# (Δ^2 / q, every q just below 2^30); at the default 2^28 it falls to 2^26,
+# 2^22 and 2^14, where the rescale's rounding noise is no longer small
+# against the slots, in both packages alike
+PIPE_DEPTH = 3
+PIPE_MICRO = 5
+PIPE_ROT = 3
+PIPE_SCALE = 2.0**30
+# rings above the longest kernel row: K1/K2 at n = 262144 on [rows, L]
+STAGED_N = 262144
+STAGED_SHAPE = (2, 4)
 
 # Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
 HBM_BYTES_PER_S = 3.35e12  # data sheet
@@ -274,7 +333,14 @@ ORIGIN = {
     "ext_prod_conv": ("hehub_tpu_torch/csrc/extprod.cu",
                       "hehub_tpu/ops/pallas/extprod_pallas.py:52"),
     "fft": ("hehub_tpu_torch/csrc/fft.cu", "hehub_tpu/ops/pallas/fft_pallas.py:60"),
+    # the port's own kernel: the jnp stage after each ppermute of the
+    # reference's sharded NTT, not a Pallas kernel
+    "ntt_stage": ("hehub_tpu_torch/csrc/ntt.cu", "hehub_tpu/parallel/ntt_sharded.py:135"),
 }
+
+
+# the kernels that port a TPU kernel (K1-K5); the stage kernel is the port's own
+TPU_KERNELS = ("ntt_fwd", "ntt_inv", "ext_prod", "ext_prod_conv", "fft")
 
 
 def origin(kind):
@@ -1809,7 +1875,7 @@ def large_ring_path(dev):
           f"large: mult decode errors {errs} above {MAX_ERR_MULT}")
     check(errs["rotate_alpha4"] <= MAX_ERR_LARGE_ROT,
           f"large: rotate decode error {errs['rotate_alpha4']} above {MAX_ERR_LARGE_ROT}")
-    for name in kernels.LAUNCHES:
+    for name in TPU_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the n={LARGE_N} path")
     key_gb = sum(k.data.numel() * 8 for k in (rlk4, rk4, rlk1)) / 1e9
     print(f"[large] keygen + keys {t_keys:.3f} s ({key_gb:.3f} GB as int64: alpha=4 "
@@ -1904,6 +1970,387 @@ def large_ring_path(dev):
     return launches, records
 
 
+def _par_setup(dev):
+    """Phase 12's inputs and keys, made alike in every process: the main
+    configuration's context and keys (secret, relin, rotation by 1 and by
+    PIPE_ROT) from a generator seeded PAR_SEED on the card, the hybrid
+    configuration's (12+2 limbs) secret and alpha=2 relin key from the same
+    generator, and from a numpy generator seeded PAR_SEED random lazy
+    residues [BATCH, L, n] (the reference's draws below 2^31, mod 2q): four
+    ciphertext halves of each configuration, and rows for the sharded NTT."""
+    params = create_ckks_params(N, scaling_bits=28, num_levels=LEVELS)
+    ctx = make_context(params)
+    hparams = create_ckks_params(N, scaling_bits=28, num_special=HYBRID_SPECIAL)
+    hctx = make_context(hparams)
+    gen = torch.Generator(device=dev).manual_seed(PAR_SEED)
+    sk = rlwe_mod.keygen(ctx, gen)
+    keys = dict(rlk=keys_mod.relin_key(ctx, sk, gen), rk=keys_mod.rot_key(ctx, sk, 1, gen),
+                rk3=keys_mod.rot_key(ctx, sk, PIPE_ROT, gen))
+    hsk = rlwe_mod.keygen(hctx, gen)
+    keys["hrlk"] = keys_mod.relin_key(hctx, hsk, gen, alpha=ALPHA)
+    rng = np.random.default_rng(PAR_SEED)
+    ids, hids = tuple(range(LEVELS)), tuple(range(len(hparams.moduli)))
+    res = lambda c, i: torch.from_numpy(entry.random_residues(rng, c, i, (BATCH,))).to(dev)  # noqa: E731
+    mk = lambda c0, c1, i, p: ckks.CkksCt(RnsPoly(c0, "ntt", i), RnsPoly(c1, "ntt", i),  # noqa: E731
+                                          p.initial_scaling_factor)
+    x = [res(ctx, ids) for _ in range(4)]
+    hx = [res(hctx, hids) for _ in range(4)]
+    return dict(params=params, ctx=ctx, hparams=hparams, hctx=hctx, gen=gen, sk=sk, **keys,
+                ca=mk(*x[:2], ids, params), cb=mk(*x[2:], ids, params),
+                ha=mk(*hx[:2], hids, hparams), hb=mk(*hx[2:], hids, hparams),
+                rows=res(ctx, ids))
+
+
+def _par_single(s, kind):
+    """The unsharded step of a phase-12 case kind in this process."""
+    ctx, hctx = s["ctx"], s["hctx"]
+    return {
+        "mult": lambda: ckks.rescale(ctx, ckks.mult(ctx, s["ca"], s["cb"], s["rlk"])),
+        "hybrid_mult": lambda: ckks.rescale(hctx, ckks.mult(hctx, s["ha"], s["hb"], s["hrlk"])),
+        "rotate": lambda: ckks.rotate(ctx, s["ca"], s["rk"], 1),
+        "ntt": lambda: (lambda f: (f, nttmod.intt(ctx, f, tuple(range(LEVELS)))))(
+            nttmod.ntt(ctx, s["rows"], tuple(range(LEVELS)))),
+    }[kind]
+
+
+def _par_step(s, kind, shape):
+    """This rank's part of a phase-12 case: (its step, a function giving
+    the step's output tensors, where they lie in the unsharded output);
+    made collectively (the mesh) by every rank of the world."""
+    if kind == "ntt":
+        mesh = pmesh.make_axis_mesh(shape, "seq")
+        ids = tuple(range(LEVELS))
+        fwd = ntt_sharded.make_sharded_ntt(s["ctx"], ids, mesh, "seq")
+        inv = ntt_sharded.make_sharded_ntt(s["ctx"], ids, mesh, "seq", inverse=True)
+        x = ntt_sharded.shard_rows(s["rows"], mesh, "seq")
+        m = N // shape
+        d = pmesh.axis_index(mesh, "seq")
+        return ((lambda: (lambda f: (f, inv(f)))(fwd(x))), lambda out: out,
+                dict(columns=(d * m, (d + 1) * m)))
+    mesh = pmesh.make_mesh(*shape)
+    hybrid = kind == "hybrid_mult"
+    ctx = s["hctx"] if hybrid else s["ctx"]
+    a = pmesh.shard_ct(mesh, s["ha"] if hybrid else s["ca"])
+    b = pmesh.shard_ct(mesh, s["hb"] if hybrid else s["cb"])
+    key = pmesh.shard_key(mesh, s[{"mult": "rlk", "hybrid_mult": "hrlk", "rotate": "rk"}[kind]],
+                          a.parts, ctx.num_special)
+    if kind == "rotate":
+        step = lambda: pmesh.rotate(ctx, mesh, a, key, 1)  # noqa: E731
+    else:
+        step = lambda: pmesh.rescale(ctx, mesh, pmesh.mult(ctx, mesh, a, b, key))  # noqa: E731
+    sizes = pmesh.split_sizes(BATCH, pmesh.axis_size(mesh, pmesh.BATCH_AXIS))
+    at = pmesh.axis_index(mesh, pmesh.BATCH_AXIS)
+    where = dict(batch=(sum(sizes[:at]), sum(sizes[:at + 1])))
+    return step, lambda out: (out.ct.c0.data, out.ct.c1.data), where
+
+
+def _digest(t) -> str:
+    return hashlib.sha256(t.cpu().numpy().astype(np.uint32).tobytes()).hexdigest()
+
+
+def _nccl_collectives(s):
+    """NCCL's all_gather and broadcast over the world on the card: the main
+    step's first input ciphertext as its uint32 bits through each, which
+    must return it unchanged; their bytes and CUDA-event times (ms)."""
+    dist = torch.distributed
+    bits = nttmod.to_u32_bits(torch.stack([s["ca"].c0.data, s["ca"].c1.data]))
+    gathered = [torch.empty_like(bits) for _ in range(dist.get_world_size())]
+    sent = bits.clone()
+    gather = lambda: dist.all_gather(gathered, bits)  # noqa: E731
+    bcast = lambda: dist.broadcast(sent, src=0)  # noqa: E731
+    gather()
+    bcast()
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, bits) for g in gathered) and torch.equal(sent, bits),
+          "NCCL's all_gather or broadcast changed the data")
+    return dict(bytes=bits.numel() * 4, all_gather_ms=device_time(gather, 1, 3) * 1e3,
+                broadcast_ms=device_time(bcast, 1, 3) * 1e3)
+
+
+def _par_rank(cases):
+    """Phase 12 in one rank of a World: every case once between a reset and
+    a read of the launch counts (the checked run), each output's sha256 and
+    place; then each case's CUDA-event time (1 warm-up, 3 calls, every rank
+    at once) and its collectives' calls, bytes and host seconds a call;
+    under NCCL also _nccl_collectives."""
+    dev = pmesh.rank_device()
+    s = _par_setup(dev)
+    steps = [_par_step(s, kind, shape) for kind, shape in cases]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pmesh.reset_comm_stats()
+    outs = [step() for step, _, _ in steps]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    report = []
+    for (step, tensors, where), out in zip(steps, outs):
+        where = dict(where, digests=[_digest(t) for t in tensors(out)])
+        if hasattr(out, "ct"):
+            where["limbs"] = out.ct.c0.limb_ids
+            where["scale"] = out.ct.scaling_factor
+        pmesh.reset_comm_stats()
+        ms = device_time(step, 1, 3) * 1e3
+        calls = 4
+        where["step_ms"] = ms
+        where["comm_per_call"] = {op: dict(calls=c / calls, bytes=b / calls, host_s=h / calls)
+                                  for op, (c, b, h) in pmesh.COMM.items()}
+        report.append(where)
+    nccl = _nccl_collectives(s) if torch.distributed.get_backend() == "nccl" else None
+    return dict(rank=torch.distributed.get_rank(), launches=launches, cases=report, nccl=nccl)
+
+
+@functools.lru_cache(maxsize=None)
+def _par_output(kind):
+    """The unsharded step's output of a case kind (_PAR_STATE's inputs)."""
+    return _par_single(_PAR_STATE, kind)()
+
+
+_PAR_STATE = None  # phase 12's inputs in this process (parallel_path)
+
+
+def _par_expected(kind, where):
+    """The sha256 of the unsharded step's part where a rank's output lies."""
+    out = _par_output(kind)
+    if kind == "ntt":
+        c0, c1 = (t[..., where["columns"][0]:where["columns"][1]] for t in out)
+    else:
+        b0, b1 = where["batch"]
+        c0, c1 = (p.data[b0:b1][..., list(where["limbs"]), :] for p in (out.c0, out.c1))
+    return [_digest(c0), _digest(c1)]
+
+
+def parallel_worlds(dev, s):
+    """Phase 12 (a)-(c): each world of PAR_WORLDS started on the card, its
+    cases run in every rank, every output checked against the unsharded
+    step here, the ranks' launches summed. Returns (launch counts summed
+    over the ranks of every world, the single-process step times)."""
+    single_ms = {kind: device_time(_par_single(s, kind), 1, 3) * 1e3
+                 for kind in ("mult", "hybrid_mult", "rotate", "ntt")}
+    print(f"[parallel] single process, one batch-{BATCH} step (CUDA events, {card_line()}): "
+          + json.dumps({k: dict(step_ms=v, ms_per_ct=v / BATCH) for k, v in single_ms.items()}))
+    expected = {}
+    total = {k: 0 for k in kernels.LAUNCHES}
+    for size, cases in PAR_WORLDS:
+        t0 = time.perf_counter()
+        with pmesh.World(size, devices=[dev] * size, timeout=PAR_TIMEOUT) as world:
+            backend = world.backend
+            t_start = time.perf_counter() - t0
+            ranks = world.run(_par_rank, cases)
+        t_world = time.perf_counter() - t0
+        launches = {k: sum(r["launches"][k] for r in ranks) for k in kernels.LAUNCHES}
+        for k in total:
+            total[k] += launches[k]
+        label = "NCCL world of 1 rank on the card" if backend == "nccl" else \
+            f"gloo world of {size} ranks, {SHARED_CARD}"
+        for c, (kind, shape) in enumerate(cases):
+            per_rank = []
+            for r in ranks:
+                where = r["cases"][c]
+                key = (kind, json.dumps({k: v for k, v in where.items()
+                                         if k in ("batch", "limbs", "columns")}))
+                if key not in expected:
+                    expected[key] = _par_expected(kind, where)
+                check(where["digests"] == expected[key],
+                      f"{backend} world of {size}, {kind} {shape}: rank {r['rank']}'s shard "
+                      f"differs from the unsharded step")
+                per_rank.append(dict(rank=r["rank"], step_ms=where["step_ms"],
+                                     ms_per_ct=where["step_ms"] / BATCH,
+                                     comm_per_call=where["comm_per_call"]))
+            print(f"[parallel] {label}: {kind} on {'D=' if kind == 'ntt' else 'mesh '}{shape}: "
+                  f"every shard bitwise the unsharded step's; per rank (CUDA events around one "
+                  f"batch-{BATCH} step, every rank at once; ms_per_ct over the whole batch; "
+                  f"collectives per call: bytes sent + received, host s), single process "
+                  f"{single_ms[kind]:.4f} ms: {json.dumps(per_rank)}")
+        if backend == "nccl":
+            print(f"[parallel] {label}: NCCL all_gather and broadcast of the step's input "
+                  f"returned it unchanged (CUDA events, {card_line()}): "
+                  f"{json.dumps([r['nccl'] for r in ranks])}")
+        print(f"[parallel] {label}: started in {t_start:.2f} s, {t_world:.2f} s in all (host "
+              f"clock); launches in the ranks {json.dumps(launches)}")
+        wanted = ("ntt_fwd", "ntt_inv", "ext_prod") + (
+            ("ext_prod_conv", "ntt_stage") if size == 2 else ("ntt_stage",) if size == 4 else ())
+        for k in wanted:
+            check(launches[k] > 0, f"kernel {k} was not launched in the ranks of the {backend} "
+                                   f"world of {size}")
+    return total, single_ms
+
+
+def parallel_dryrun():
+    """Phase 12: entry.dryrun_multichip(DRYRUN_RANKS) as a user calls it,
+    its ranks on the card (sharing it, over gloo); each rank asserts its
+    shards bitwise. Checks that every rank ran on the card and that K1, K2,
+    K3 and the stage kernel launched in the ranks."""
+    t0 = time.perf_counter()
+    reports = entry.dryrun_multichip(DRYRUN_RANKS)
+    devices = sorted({r["device"] for r in reports})
+    check(all(d.startswith("cuda") for d in devices),
+          f"dryrun_multichip ran ranks on {devices}, not on the card")
+    launches = {k: sum(r["launches"][k] for r in reports) for k in kernels.LAUNCHES}
+    for k in ("ntt_fwd", "ntt_inv", "ext_prod", "ntt_stage"):
+        check(launches[k] > 0, f"kernel {k} was not launched in dryrun_multichip's ranks")
+    print(f"[parallel] dryrun_multichip({DRYRUN_RANKS}): ranks on {devices} ({SHARED_CARD}), "
+          f"every shard bitwise the unsharded port's; {time.perf_counter() - t0:.2f} s (host "
+          f"clock); launches in the ranks {json.dumps(launches)}")
+
+
+def _decode_err(ctx, params, ct, sk, want):
+    return float(np.abs(ckks.decode(ckks.decrypt(ctx, ct, sk), params) - want).max())
+
+
+def parallel_pipelines(dev, s):
+    """Phase 12 (d): PipelinedSquaringChain of depth PIPE_DEPTH and the
+    square -> rotate(PIPE_ROT) -> halve Pipeline over [dev] * 3 (three
+    streams of the card), PIPE_MICRO microbatches of BATCH encoded at
+    PIPE_SCALE, bitwise the sequential chains and decoded against numpy
+    (2^-8 a squaring; the rotate's bound MAX_ERR_ROT); then pipelined and
+    sequential CUDA-event times."""
+    ctx, params, sk, gen = s["ctx"], s["params"], s["sk"], s["gen"]
+    rng = np.random.default_rng(PAR_SEED + 1)
+    vs = [rng.uniform(-1, 1, (BATCH, N // 2)) * 0.9 for _ in range(PIPE_MICRO)]
+    cts = [ckks.encrypt(ctx, ckks.encode(v, params, PIPE_SCALE, device=dev), sk, gen)
+           for v in vs]
+    half = np.full(N // 2, 0.5)
+    square = lambda c, ct: ckks.rescale(c, ckks.mult(c, ct, ct, s["rlk"]))  # noqa: E731
+    stages = [square, lambda c, ct: ckks.rotate(c, ct, s["rk3"], PIPE_ROT),
+              lambda c, ct: ckks.rescale(c, ckks.mult_plain(c, ct, ckks.encode(
+                  half, c.params, level=LEVELS - ct.c0.limb_count, device=dev)))]
+    chain = pipemod.PipelinedSquaringChain(ctx, s["rlk"], PIPE_DEPTH, LEVELS, [dev] * PIPE_DEPTH)
+    mixed = pipemod.Pipeline(ctx, stages, [dev] * len(stages))
+
+    def sequential(fns):
+        def run():
+            outs = []
+            for ct in cts:
+                for fn in fns:
+                    ct = fn(ctx, ct)
+                outs.append(ct)
+            return outs
+        return run
+
+    report = {}
+    for tag, pipe, fns, want, bound in (
+            ("squaring chain", chain, [square] * PIPE_DEPTH, [v**8 for v in vs],
+             PIPE_DEPTH * MAX_ERR_MULT),
+            ("square -> rotate -> halve", mixed, stages,
+             [np.roll(v * v, PIPE_ROT, axis=-1) * 0.5 for v in vs], MAX_ERR_ROT)):
+        got, seq = pipe.run(cts), sequential(fns)()
+        for g, q in zip(got, seq):
+            check(_same_ct(g, q), f"pipeline {tag}: differs from the sequential chain")
+        errs = [_decode_err(ctx, params, g, sk, w) for g, w in zip(got, want)]
+        check(max(errs) <= bound, f"pipeline {tag}: decode errors {errs} above {bound}")
+        piped_ms = device_time(lambda: pipe.run(cts), 1, 3) * 1e3
+        seq_ms = device_time(sequential(fns), 1, 3) * 1e3
+        report[tag] = dict(max_abs_err=max(errs), bound=bound, pipelined_ms=piped_ms,
+                           sequential_ms=seq_ms, speedup=seq_ms / piped_ms)
+    print(f"[parallel] pipelines over [cuda:0] * 3 (three streams of one card), {PIPE_MICRO} "
+          f"microbatches of {BATCH}: bitwise the sequential chains; CUDA events around one run "
+          f"of all microbatches, {card_line()}: {json.dumps(report)}")
+
+
+def staged_records(dev, gen):
+    """Phase 12 (e) and the stage kernel's records: K1 / K2 at n=262144 on
+    STAGED_SHAPE through ops.ntt (the stage kernel on the halves in place,
+    then K1 / K2 on parts of 131072), bitwise the plain chains, timed as in
+    phase 3; the stage kernel alone at the sharded NTT's cross stage
+    ([BATCH, L, 1, N/2] pairs from two tensors, one half kept) and at
+    n=262144's in-place stage, bitwise ntt_stage_plain. Returns (launches
+    of one ntt and one intt, the records)."""
+    rows, L = STAGED_SHAPE
+    big = make_context(RlweParams(dimension=STAGED_N, moduli=hm.gen_ntt_primes(30, L, STAGED_N)))
+    ids = tuple(range(L))
+    x = lazy_residues(gen, (rows, L, STAGED_N), big.device_rows("two_q", ids, dev))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    f = nttmod.ntt(big, x, ids)
+    i = nttmod.intt(big, f, ids)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    records = {}
+    for kind, got, inp in (("ntt_fwd", f, x), ("ntt_inv", i, f)):
+        fwd = kind == "ntt_fwd"
+        plain = nttmod.ntt_fwd if fwd else nttmod.ntt_inv
+        names = nttmod.FWD_TABLES if fwd else nttmod.INV_TABLES
+        t64 = [big.device_rows(nm, ids, dev) for nm in names]
+        want = plain(inp, *t64)
+        call = (lambda v=inp: nttmod.ntt(big, v, ids)) if fwd else \
+            (lambda v=inp: nttmod.intt(big, v, ids))
+        records[f"{kind}_staged"] = dict(
+            **origin(kind), match="bitwise vs plain", shape=str([rows, L, STAGED_N]),
+            max_abs_err=int((got - want).abs().max()), **timed(call),
+            plain_ms=device_time(lambda: plain(inp, *t64), 1, 3) * 1e3, library_ms=None,
+            **bound(2 * inp.numel() * 4, ntt_ops(rows * L, STAGED_N, not fwd), INT32_PER_S))
+
+    ctx = make_context(create_ckks_params(N, scaling_bits=28, num_levels=LEVELS))
+    lids = tuple(range(LEVELS))
+    shapes = (("sharded", ctx, lids, (BATCH, LEVELS, 1, N // 2), 0),
+              ("in_place", big, ids, (rows, L, 1, STAGED_N // 2), None))
+    stage = {}
+    for tag, c, i_, (R, L_, B, m), keep in shapes:
+        two_q = c.device_rows("two_q", i_, dev)
+        if keep is None:  # the halves of each block of rows in place
+            x = lazy_residues(gen, (R, L_, B, 2, m), two_q[..., None, None])
+            lo, hi = x[..., 0, :], x[..., 1, :]
+            x32 = nttmod.to_u32_bits(x)
+            lo32, hi32 = x32[..., 0, :], x32[..., 1, :]
+        else:  # two tensors, as a rank and the block it received
+            lo, hi = (lazy_residues(gen, (R, L_, B, m), two_q[..., None]) for _ in range(2))
+            lo32, hi32 = nttmod.to_u32_bits(lo), nttmod.to_u32_bits(hi)
+        tabs = {dt: [c.device_rows(nm, i_, dev, dt)[:, B:2 * B] for nm in ("tw_fwd", "tw_fwd_sh")]
+                + [c.device_rows(nm, i_, dev, dt) for nm in ("q", "two_q")]
+                for dt in (torch.int32, torch.int64)}
+        got = nttmod.ntt_stage(lo, hi, *tabs[torch.int32], keep=keep)
+        want = nttmod.ntt_stage_plain(lo, hi, *tabs[torch.int64])
+        want = want if keep is None else want[..., keep, :]
+        pairs = R * L_ * B * m
+        out_words = pairs * (1 if keep is not None else 2)
+        stage[tag] = dict(
+            shape=f"pairs [{R}, {L_}, {B}, {m}], keep {keep}", max_abs_err=int((got - want).abs().max()),
+            **timed(lambda: kernels.ntt_stage(lo32, hi32, *tabs[torch.int32], keep=keep)),
+            plain_ms=device_time(lambda: nttmod.ntt_stage_plain(lo, hi, *tabs[torch.int64]),
+                                 1, 3) * 1e3,
+            library_ms=None,
+            **bound(4 * (2 * pairs + out_words + 2 * L_ * B), pairs * FWD_BUTTERFLY_OPS,
+                    INT32_PER_S))
+    records["ntt_stage"] = dict(**origin("ntt_stage"), match="bitwise vs plain", **stage["sharded"],
+                                n262144_in_place=stage["in_place"])
+    check(stage["in_place"]["max_abs_err"] == 0, "the stage kernel in place differs from plain")
+    summarize(records)
+    return launches, records
+
+
+def parallel_path(dev):
+    """Phase 12. Returns (the launch counts of the phase: the ranks' and this
+    process's pipelines and n=262144 transforms, those of one n=262144 ntt
+    and intt, the stage kernel's and K1 / K2's n=262144 records)."""
+    global _PAR_STATE
+    t_phase = time.perf_counter()
+    s = _PAR_STATE = _par_setup(dev)
+    seconds = {}
+    t0 = time.perf_counter()
+    rank_launches, _ = parallel_worlds(dev, s)
+    seconds["worlds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parallel_dryrun()
+    seconds["dryrun"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    parallel_pipelines(dev, s)
+    here = dict(kernels.LAUNCHES)
+    seconds["pipelines"] = time.perf_counter() - t0
+    _PAR_STATE = s = None
+    _par_output.cache_clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    staged_launches, records = staged_records(dev, torch.Generator(device=dev).manual_seed(72))
+    seconds["staged"] = time.perf_counter() - t0
+    launches = {k: rank_launches[k] + here[k] + staged_launches[k] for k in kernels.LAUNCHES}
+    seconds["phase"] = time.perf_counter() - t_phase
+    print(f"[parallel] launches of the phase (ranks, pipelines, one n={STAGED_N} ntt and intt): "
+          f"{json.dumps(launches)}; seconds (host clock): {json.dumps(seconds)}")
+    return launches, staged_launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -1951,8 +2398,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     large_launches, large_records = large_ring_path(dev)
     torch.cuda.empty_cache()
+    par_launches, staged_launches, par_records = parallel_path(dev)
+    torch.cuda.empty_cache()
     by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches,
-               "bgv": bgv_launches}
+               "bgv": bgv_launches, "parallel": par_launches}
     for k, rec in records.items():
         rec["launches_by_path"] = {tag: counts[k] for tag, counts in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -1989,6 +2438,13 @@ def main() -> int:
         rec["launches_by_path"] = {"large_ring": large_launches[kind]}
         check(rec["launches"] > 0, f"kernel {name} was not launched on the n={LARGE_N} path")
     records.update(large_records)
+    for name, rec in par_records.items():
+        launches = (par_launches if name == "ntt_stage" else staged_launches)[
+            name.removesuffix("_staged")]
+        rec["launches"] = launches
+        rec["launches_by_path"] = {"parallel": launches}
+        check(launches > 0, f"kernel {name} was not launched on the parallel path")
+    records.update(par_records)
     lost = [k for k, rec in records.items() if rec["kernel_ms"] is None]
     check(2 * len(lost) <= len(records),
           f"the profiler gave no kernel-only time for {lost}: the instrument, not a dropped record")

@@ -288,17 +288,34 @@ def _shoup_np(w: np.ndarray, q: int) -> np.ndarray:
 
 
 def sub_table(name: str, sub_n: int) -> str:
-    """The name under which Context.rows / device_rows and
-    ModulusTables.device_row give the twiddle table `name` (tw_fwd,
-    tw_fwd_sh, tw_inv or tw_inv_sh) regrouped for sub-rows of sub_n
-    (sub_row_tables)."""
+    """The name under which Context.rows / device_rows,
+    ModulusTables.device_row and TableRows.device_rows give the twiddle
+    table `name` (tw_fwd, tw_fwd_sh, tw_inv or tw_inv_sh, or a sub_table
+    name itself) regrouped for sub-rows of sub_n (sub_row_tables): so
+    sub_table(sub_table("tw_fwd", 131072), 32768) is the table regrouped
+    for parts of 131072, each part's row regrouped again for sub-rows of
+    32768."""
     return f"{name}@{sub_n}"
 
 
-def _regrouped(name: str):
-    """(compact table, sub_n) of a sub_table name, or None."""
-    base, _, sub_n = name.partition("@")
-    return (base, int(sub_n)) if sub_n else None
+def _host_rows(lookup, name: str) -> np.ndarray:
+    """The host rows of table `name`: lookup(name) for a plain name, and for
+    a sub_table name its compact table lookup(base) regrouped along the
+    name's chain of sub-row lengths."""
+    base, *subs = name.split("@")
+    if not subs:
+        return lookup(name)
+    tw = lookup(base)
+    for sub_n in subs:
+        tw = sub_row_tables(tw, int(sub_n))
+    return tw
+
+
+def _device_copy(host: np.ndarray, device, dtype: torch.dtype) -> torch.Tensor:
+    """uint32 host rows on `device`: int64 values, or int32 bits."""
+    host = np.ascontiguousarray(host, dtype=U32)
+    host = host.view(np.int32).copy() if dtype == torch.int32 else host.astype(np.int64)
+    return torch.from_numpy(host).to(device=device)
 
 
 def sub_row_tables(tw: np.ndarray, sub_n: int) -> np.ndarray:
@@ -365,14 +382,31 @@ class ModulusTables:
         key = (name, str(device), dtype)
         t = self._device_cache.get(key)
         if t is None:
-            regrouped = _regrouped(name)
-            if regrouped:
-                base, sub_n = regrouped
-                host = sub_row_tables(getattr(self, base).reshape(1, -1), sub_n)
-            else:
-                host = np.asarray(getattr(self, name), dtype=U32).reshape(1, -1)
-            host = host.view(np.int32) if dtype == torch.int32 else host.astype(np.int64)
-            t = torch.from_numpy(host).to(device=device)
+            host = _host_rows(lambda nm: np.asarray(getattr(self, nm), dtype=U32).reshape(1, -1),
+                              name)
+            t = _device_copy(host, device, dtype)
+            self._device_cache[key] = t
+        return t
+
+
+class TableRows:
+    """The tables of L rows that are not a context's limbs, e.g. the parts of
+    longer rows that parallel/ntt_sharded.py gives each rank: host uint32
+    arrays by name ([L, n] twiddle tables, [L, 1] constants), served as
+    Context.device_rows serves a context's (sub_table names regrouped),
+    cached. `device_rows` takes the (name, device, dtype) of the rows
+    providers of ops/ntt.py."""
+
+    def __init__(self, **host: np.ndarray):
+        self.host = {nm: np.ascontiguousarray(a, dtype=U32) for nm, a in host.items()}
+        self._device_cache: Dict[tuple, torch.Tensor] = {}
+
+    def device_rows(self, name: str, device, dtype: torch.dtype = torch.int64) -> torch.Tensor:
+        device = torch.device(device)
+        key = (name, str(device), dtype)
+        t = self._device_cache.get(key)
+        if t is None:
+            t = _device_copy(_host_rows(self.host.__getitem__, name), device, dtype)
             self._device_cache[key] = t
         return t
 
@@ -433,11 +467,8 @@ class Context:
     def rows(self, name: str, limb_ids: Tuple[int, ...]) -> np.ndarray:
         """Host rows of table `name` for `limb_ids` (of a sub_table: its
         [len(limb_ids) n / sub_n, sub_n] rows, sub_row_tables)."""
-        regrouped = _regrouped(name)
-        if regrouped:
-            base, sub_n = regrouped
-            return sub_row_tables(self.rows(base, limb_ids), sub_n)
-        return getattr(self, name)[np.asarray(limb_ids, dtype=np.int64)]
+        return _host_rows(lambda nm: getattr(self, nm)[np.asarray(limb_ids, dtype=np.int64)],
+                          name)
 
     def device_rows(
         self,
@@ -453,9 +484,7 @@ class Context:
         key = (name, tuple(limb_ids), str(device), dtype)
         t = self._device_cache.get(key)
         if t is None:
-            host = self.rows(name, limb_ids)  # a fresh contiguous copy
-            host = host.view(np.int32) if dtype == torch.int32 else host.astype(np.int64)
-            t = torch.from_numpy(host).to(device=device)
+            t = _device_copy(self.rows(name, limb_ids), device, dtype)
             self._device_cache[key] = t
         return t
 

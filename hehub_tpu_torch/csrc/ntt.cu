@@ -62,6 +62,22 @@
 // The row's limb is row % L: data is a contiguous [..., L, n] tensor.
 // Output is bitwise equal to the plain chains ntt_fwd / ntt_inv of
 // hehub_tpu_torch/ops/ntt.py (same butterflies, same operands).
+//
+// The stage kernel (hh_ntt_stage) is the port's own and replaces no TPU
+// kernel: one forward (Cooley-Tukey) or inverse (Gentleman-Sande) radix-2
+// stage on (lo, hi) operand pairs that lie in two places: the two halves of
+// each block of a row held in place (rows of n = 2^k 131072, whose first k
+// forward and last k inverse stages pair whole parts of 131072, so that
+// after them each part is an ordinary row of 131072 for K1 and K2 under
+// its regrouped table row, ops/ntt.py), or the halves of a row held by two
+// ranks (parallel/ntt_sharded.py's cross stages, the counterpart of the
+// jnp stage after each ppermute of hehub_tpu/parallel/ntt_sharded.py). In
+// both, every pair of a block takes the same twiddle, so the kernel reads
+// one (w, w_sh) per (limb, block), not one per element. What bounds it on
+// the H100: the bytes, each operand read once and each result written once
+// (4 words a butterfly, 2 when only one half is kept), against 9-11
+// integer operations; the design is one coalesced pass, 4 words a thread as
+// uint4, with no shared memory.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -160,8 +176,10 @@ __global__ void __launch_bounds__(1 << (LOGN - 1 - EB), min_blocks(1 << (LOGN - 
 // pair the half sub-rows (the last folding n^-1), run on columns c of the U
 // parts: block g takes c in [g H/U, (g + 1) H/U), reads the U values of each
 // through distributed shared memory (hh::inv_cross) and writes all U
-// results.
-template <int LOGN, int EB, int K>
+// results. With FOLD false (no n^-1 given) the last stage is an ordinary one
+// under table entry 1: the row is a part of a longer one, whose stages
+// pairing the parts follow in the stage kernel below.
+template <int LOGN, int EB, int K, bool FOLD>
 __global__ void __launch_bounds__(1 << (LOGN - 1 - EB), min_blocks(1 << (LOGN - 1 - EB)))
     ntt_inv_kernel(const NttArgs a) {
   constexpr int n = 1 << LOGN, H = n / 2, E = 1 << EB, T = H / E, U = 2 << K;
@@ -197,21 +215,26 @@ __global__ void __launch_bounds__(1 << (LOGN - 1 - EB), min_blocks(1 << (LOGN - 
   const uint32_t* xs[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) xs[u] = cluster.map_shared_rank(x, u) + g * (H / U) + tid;
-  uint32_t w[U], w_sh[U];  // table entries 2 .. U - 1: the unfolded cross stages
+  uint32_t w[U], w_sh[U];  // table entries 2 .. U - 1 (1 .. U - 1): the unfolded cross stages
 #pragma unroll
-  for (int u = 2; u < U; ++u) {
+  for (int u = FOLD ? 2 : 1; u < U; ++u) {
     w[u] = hh::cross_twiddle<K>(rows, n, u);
     w_sh[u] = hh::cross_twiddle<K>(rows_sh, n, u);
   }
-  const uint32_t w_last = a.w_last[limb], w_last_sh = a.w_last_sh[limb];
-  const uint32_t n_inv = a.n_inv[limb], n_inv_sh = a.n_inv_sh[limb];
+  uint32_t w_last = 0, w_last_sh = 0, n_inv = 0, n_inv_sh = 0;
+  if constexpr (FOLD) {
+    w_last = a.w_last[limb];
+    w_last_sh = a.w_last_sh[limb];
+    n_inv = a.n_inv[limb];
+    n_inv_sh = a.n_inv_sh[limb];
+  }
   uint32_t* dst = a.out + row * NF + g * (H / U) + tid;
 #pragma unroll
   for (int k = 0; k < E / U; ++k) {
     uint32_t y[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) y[u] = xs[u][k * T];
-    hh::inv_cross<K + 1>(y, w, w_sh, q, two_q, w_last, w_last_sh, n_inv, n_inv_sh);
+    hh::inv_cross<K + 1, FOLD>(y, w, w_sh, q, two_q, w_last, w_last_sh, n_inv, n_inv_sh);
 #pragma unroll
     for (int u = 0; u < U; ++u) dst[u * H + k * T] = y[u];
   }
@@ -224,8 +247,8 @@ __global__ void __launch_bounds__(1 << (LOGN - 1 - EB), min_blocks(1 << (LOGN - 
 // rows [b R, (b + 1) R), R = 2048 / n, contiguous in memory, so its loads
 // and stores are coalesced words; the last block masks the rows past `rows`.
 // Row r takes limb r % L; each thread's butterflies take the constants of
-// their rows' limbs.
-template <bool INV, int LOGN>
+// their rows' limbs. FOLD as ntt_inv_kernel's.
+template <bool INV, int LOGN, bool FOLD>
 __global__ void __launch_bounds__(hh::kSmallThreads)
     ntt_small_kernel(const NttArgs a, long long rows) {
   __shared__ uint32_t x[hh::kSmallValues];
@@ -248,7 +271,7 @@ __global__ void __launch_bounds__(hh::kSmallThreads)
     c.tw_sh[k] = a.tw_sh + static_cast<long long>(limb) * n;
     c.q[k] = a.q[limb];
     c.two_q[k] = a.two_q[limb];
-    if constexpr (INV) {
+    if constexpr (INV && FOLD) {
       last.w[k] = a.w_last[limb];
       last.w_sh[k] = a.w_last_sh[limb];
       last.n_inv[k] = a.n_inv[limb];
@@ -257,7 +280,7 @@ __global__ void __launch_bounds__(hh::kSmallThreads)
   }
   __syncthreads();
   if constexpr (INV) {
-    hh::inv_stages_small<LOGN>(x, tid, c, last);
+    hh::inv_stages_small<LOGN, FOLD>(x, tid, c, last);
   } else {
     hh::fwd_stages_small<LOGN>(x, tid, c);
   }
@@ -268,11 +291,11 @@ __global__ void __launch_bounds__(hh::kSmallThreads)
   }
 }
 
-template <bool INV, int LOGN>
+template <bool INV, bool FOLD, int LOGN>
 int launch_small(const NttArgs& a, long long rows, cudaStream_t stream) {
   constexpr long long per_block = hh::kSmallValues >> LOGN;
   const long long blocks = (rows + per_block - 1) / per_block;
-  ntt_small_kernel<INV, LOGN><<<static_cast<unsigned>(blocks), hh::kSmallThreads, 0, stream>>>(
+  ntt_small_kernel<INV, LOGN, FOLD><<<static_cast<unsigned>(blocks), hh::kSmallThreads, 0, stream>>>(
       a, rows);
   return static_cast<int>(cudaGetLastError());
 }
@@ -280,11 +303,12 @@ int launch_small(const NttArgs& a, long long rows, cudaStream_t stream) {
 // Sets the kernel's dynamic shared memory limit once per device (it may
 // exceed the 48 KB default) and launches it on 2^(K+1) `rows` blocks, K2 in
 // clusters of 2^(K+1): rows of n 2^K values.
-template <bool INV, int LOGN, int K = 0>
+template <bool INV, bool FOLD, int LOGN, int K = 0>
 int launch(const NttArgs& a, long long rows, cudaStream_t stream) {
   constexpr int EB = kElemsLog;
   constexpr size_t smem = hh::padded<EB>(1 << (LOGN - 1)) * sizeof(uint32_t);
-  void (*kernel)(NttArgs) = INV ? ntt_inv_kernel<LOGN, EB, K> : ntt_fwd_kernel<LOGN, EB, K>;
+  void (*kernel)(NttArgs) =
+      INV ? ntt_inv_kernel<LOGN, EB, K, FOLD> : ntt_fwd_kernel<LOGN, EB, K>;
   static unsigned configured = 0;
   const cudaError_t err = hh::set_max_smem_once(kernel, smem, configured);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -293,43 +317,131 @@ int launch(const NttArgs& a, long long rows, cudaStream_t stream) {
                                                stream, a));
 }
 
-template <bool INV>
+// FOLD: K2 folds n^-1 into its last stage (always true for K1).
+template <bool INV, bool FOLD>
 int dispatch(const NttArgs& a, long long rows, int logn, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (logn) {
     case 3:
-      return launch_small<INV, 3>(a, rows, s);
+      return launch_small<INV, FOLD, 3>(a, rows, s);
     case 4:
-      return launch_small<INV, 4>(a, rows, s);
+      return launch_small<INV, FOLD, 4>(a, rows, s);
     case 5:
-      return launch_small<INV, 5>(a, rows, s);
+      return launch_small<INV, FOLD, 5>(a, rows, s);
     case 6:
-      return launch_small<INV, 6>(a, rows, s);
+      return launch_small<INV, FOLD, 6>(a, rows, s);
     case 7:
-      return launch_small<INV, 7>(a, rows, s);
+      return launch_small<INV, FOLD, 7>(a, rows, s);
     case 8:
-      return launch_small<INV, 8>(a, rows, s);
+      return launch_small<INV, FOLD, 8>(a, rows, s);
     case 9:
-      return launch_small<INV, 9>(a, rows, s);
+      return launch_small<INV, FOLD, 9>(a, rows, s);
     case 10:
-      return launch<INV, 10>(a, rows, s);
+      return launch<INV, FOLD, 10>(a, rows, s);
     case 11:
-      return launch<INV, 11>(a, rows, s);
+      return launch<INV, FOLD, 11>(a, rows, s);
     case 12:
-      return launch<INV, 12>(a, rows, s);
+      return launch<INV, FOLD, 12>(a, rows, s);
     case 13:
-      return launch<INV, 13>(a, rows, s);
+      return launch<INV, FOLD, 13>(a, rows, s);
     case 14:
-      return launch<INV, 14>(a, rows, s);
+      return launch<INV, FOLD, 14>(a, rows, s);
     case 15:
-      return launch<INV, 15>(a, rows, s);
+      return launch<INV, FOLD, 15>(a, rows, s);
     case 16:  // two sub-rows of 32768
-      return launch<INV, 15, 1>(a, rows, s);
+      return launch<INV, FOLD, 15, 1>(a, rows, s);
     case 17:  // four sub-rows of 32768
-      return launch<INV, 15, 2>(a, rows, s);
+      return launch<INV, FOLD, 15, 2>(a, rows, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The stage kernel: items k < rows L B m / 4, each 4 consecutive pairs of
+// row ρ = (r L + l) B + b (limb l, block b) at offset i, lo at
+// lo + ρ in_stride + i and hi likewise, under w[l w_stride + b]:
+//   forward:  lo' = lo + hi w, hi' = lo - hi w (lazy, as ntt_fwd's stages);
+//   inverse:  lo' = lo + hi, hi' = (lo + 2q - hi) w, or with FOLD (the last
+//             stage of a chain) lo' = (lo + hi) n^-1 (as ntt_inv's).
+// A null out_lo or out_hi is not written (a rank keeps one half).
+struct StageArgs {
+  const uint32_t* lo;
+  const uint32_t* hi;
+  long long in_stride;
+  uint32_t* out_lo;
+  uint32_t* out_hi;
+  long long out_stride;
+  const uint32_t* w;  // [L, w_stride], entry b of row l for block b
+  const uint32_t* w_sh;
+  long long w_stride;
+  const uint32_t* q;  // [L] each
+  const uint32_t* two_q;
+  const uint32_t* n_inv;
+  const uint32_t* n_inv_sh;
+  int L;
+  int log_b;   // log2 of the blocks B a row
+  int log_m4;  // log2 of m / 4, m the pairs a block
+};
+
+constexpr int kStageThreads = 256;
+
+template <bool INV, bool FOLD>
+__device__ __forceinline__ void stage_butterfly(uint32_t& lo, uint32_t& hi, uint32_t w,
+                                                uint32_t w_sh, uint32_t q, uint32_t two_q,
+                                                uint32_t n_inv, uint32_t n_inv_sh) {
+  const uint32_t a = lo, b = hi;
+  if constexpr (!INV) {
+    const uint32_t wh = hh::shoup_mul_lazy(b, w, w_sh, q);
+    lo = hh::add_lazy(a, wh, two_q);
+    hi = hh::sub_lazy(a, wh, two_q);
+  } else {
+    lo = FOLD ? hh::shoup_mul_lazy(a + b, n_inv, n_inv_sh, q) : hh::add_lazy(a, b, two_q);
+    hi = hh::shoup_mul_lazy(a + two_q - b, w, w_sh, q);
+  }
+}
+
+template <bool INV, bool FOLD>
+__global__ void __launch_bounds__(kStageThreads)
+    ntt_stage_kernel(const StageArgs a, unsigned long long items) {
+  const unsigned long long m4_mask = (1ull << a.log_m4) - 1;
+  for (unsigned long long k = static_cast<unsigned long long>(blockIdx.x) * kStageThreads +
+                              threadIdx.x;
+       k < items; k += static_cast<unsigned long long>(gridDim.x) * kStageThreads) {
+    const unsigned long long row = k >> a.log_m4;
+    const long long i = static_cast<long long>(k & m4_mask) * 4;
+    const int b = static_cast<int>(row & ((1ull << a.log_b) - 1));
+    const int limb = static_cast<int>(static_cast<unsigned>(row >> a.log_b) % a.L);
+    const uint32_t q = __ldg(a.q + limb), two_q = __ldg(a.two_q + limb);
+    const long long wi = limb * a.w_stride + b;
+    const uint32_t w = __ldg(a.w + wi), w_sh = __ldg(a.w_sh + wi);
+    uint32_t n_inv = 0, n_inv_sh = 0;
+    if constexpr (FOLD) {
+      n_inv = __ldg(a.n_inv + limb);
+      n_inv_sh = __ldg(a.n_inv_sh + limb);
+    }
+    const long long at = static_cast<long long>(row) * a.in_stride + i;
+    uint4 x = __ldg(reinterpret_cast<const uint4*>(a.lo + at));
+    uint4 y = __ldg(reinterpret_cast<const uint4*>(a.hi + at));
+    stage_butterfly<INV, FOLD>(x.x, y.x, w, w_sh, q, two_q, n_inv, n_inv_sh);
+    stage_butterfly<INV, FOLD>(x.y, y.y, w, w_sh, q, two_q, n_inv, n_inv_sh);
+    stage_butterfly<INV, FOLD>(x.z, y.z, w, w_sh, q, two_q, n_inv, n_inv_sh);
+    stage_butterfly<INV, FOLD>(x.w, y.w, w, w_sh, q, two_q, n_inv, n_inv_sh);
+    const long long to = static_cast<long long>(row) * a.out_stride + i;
+    if (a.out_lo != nullptr) *reinterpret_cast<uint4*>(a.out_lo + to) = x;
+    if (a.out_hi != nullptr) *reinterpret_cast<uint4*>(a.out_hi + to) = y;
+  }
+}
+
+template <bool INV, bool FOLD>
+int launch_stage(const StageArgs& a, long long rows, cudaStream_t stream) {
+  const unsigned long long items = static_cast<unsigned long long>(rows) * a.L
+                                   << (a.log_b + a.log_m4);
+  if (items == 0) return 0;
+  // a grid-stride loop: at most 2^20 blocks, 16 a streaming multiprocessor and more
+  const unsigned long long want = (items + kStageThreads - 1) / kStageThreads;
+  const unsigned blocks = static_cast<unsigned>(want < (1ull << 20) ? want : (1ull << 20));
+  ntt_stage_kernel<INV, FOLD><<<blocks, kStageThreads, 0, stream>>>(a, items);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -348,18 +460,40 @@ const char* hh_error_string(int code) {
 int hh_ntt_fwd(const uint32_t* in, uint32_t* out, const uint32_t* tw, const uint32_t* tw_sh,
                const uint32_t* q, const uint32_t* two_q, long long rows, int L, int logn,
                void* stream) {
-  return dispatch<false>({in, out, tw, tw_sh, q, two_q, nullptr, nullptr, nullptr, nullptr, L},
-                         rows, logn, stream);
+  return dispatch<false, true>(
+      {in, out, tw, tw_sh, q, two_q, nullptr, nullptr, nullptr, nullptr, L}, rows, logn, stream);
 }
 
 // K2. As K1, with the last stage's constants w_last/w_last_sh/n_inv/n_inv_sh
-// [L].
+// [L]; all four null: the last stage does not fold n^-1 (the rows are parts
+// of longer ones, whose last stages the stage kernel runs).
 int hh_ntt_inv(const uint32_t* in, uint32_t* out, const uint32_t* tw, const uint32_t* tw_sh,
                const uint32_t* q, const uint32_t* two_q, const uint32_t* w_last,
                const uint32_t* w_last_sh, const uint32_t* n_inv, const uint32_t* n_inv_sh,
                long long rows, int L, int logn, void* stream) {
-  return dispatch<true>(
-      {in, out, tw, tw_sh, q, two_q, w_last, w_last_sh, n_inv, n_inv_sh, L}, rows, logn, stream);
+  const NttArgs a{in, out, tw, tw_sh, q, two_q, w_last, w_last_sh, n_inv, n_inv_sh, L};
+  return n_inv == nullptr ? dispatch<true, false>(a, rows, logn, stream)
+                          : dispatch<true, true>(a, rows, logn, stream);
+}
+
+// The stage kernel. lo/hi: the operand rows, row ρ < rows L 2^log_b at
+// lo + ρ in_stride (limb (ρ >> log_b) % L, block ρ mod 2^log_b), each of
+// m = 2^(log_m4 + 2) pairs; out_lo/out_hi likewise at out_stride (either
+// may be null: not written); w/w_sh: the twiddle of limb l, block b at
+// l w_stride + b; q/two_q: [L]; inverse: 0 forward, 1 inverse; n_inv and
+// n_inv_sh [L] (inverse only, else null): fold n^-1 into lo'. Pointers and
+// strides 16-byte aligned. Returns cudaGetLastError() after the launch.
+int hh_ntt_stage(const uint32_t* lo, const uint32_t* hi, long long in_stride, uint32_t* out_lo,
+                 uint32_t* out_hi, long long out_stride, const uint32_t* w, const uint32_t* w_sh,
+                 long long w_stride, const uint32_t* q, const uint32_t* two_q,
+                 const uint32_t* n_inv, const uint32_t* n_inv_sh, long long rows, int L,
+                 int log_b, int log_m4, int inverse, void* stream) {
+  const StageArgs a{lo, hi, in_stride, out_lo, out_hi, out_stride, w, w_sh, w_stride,
+                    q, two_q, n_inv, n_inv_sh, L, log_b, log_m4};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!inverse) return launch_stage<false, false>(a, rows, s);
+  return n_inv == nullptr ? launch_stage<true, false>(a, rows, s)
+                          : launch_stage<true, true>(a, rows, s);
 }
 
 }  // extern "C"

@@ -240,8 +240,11 @@ __device__ __forceinline__ uint32_t cross_twiddle(const uint32_t* rows, int n, i
 // on one column y[u] of them: stage s pairs part u with u + 2^s, in block
 // i = u >> (s + 1) of 2^S >> (s + 1) blocks, under tw[(2^S >> (s + 1)) + i]
 // (w/w_sh indexed by that table index, entries 2 .. 2^S - 1), and the last
-// stage folds n^-1 (w_last, n_inv), as ntt_inv's. Every value is kept.
-template <int S>
+// stage folds n^-1 (w_last, n_inv), as ntt_inv's. With FOLD false the last
+// stage is an ordinary one under w[1] (entries 1 .. 2^S - 1), as where the
+// row is a part of a longer one whose last stages run after it. Every
+// value is kept.
+template <int S, bool FOLD = true>
 __device__ __forceinline__ void inv_cross(uint32_t (&y)[1 << S], const uint32_t* w,
                                           const uint32_t* w_sh, uint32_t q, uint32_t two_q,
                                           uint32_t w_last, uint32_t w_last_sh, uint32_t n_inv,
@@ -256,7 +259,7 @@ __device__ __forceinline__ void inv_cross(uint32_t (&y)[1 << S], const uint32_t*
       for (int jj = 0; jj < t; ++jj) {
         const int lo = 2 * t * i + jj, hi = lo + t;
         const uint32_t a = y[lo], b = y[hi];
-        if (s == S - 1) {
+        if (FOLD && s == S - 1) {
           y[lo] = shoup_mul_lazy(a + b, n_inv, n_inv_sh, q);
           y[hi] = shoup_mul_lazy(a + two_q - b, w_last, w_last_sh, q);
         } else {

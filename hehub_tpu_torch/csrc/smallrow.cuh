@@ -80,8 +80,9 @@ struct SmallLast {
 // Inverse (Gentleman-Sande) stages: stage s pairs x[i 2t + j] with
 // x[i 2t + t + j], t = 2^s: lo' = lo + hi, hi' = (lo + 2q - hi) tw[h + i],
 // h = n >> (s+1); the last stage (h = 1) folds n^-1: lo' = (lo + hi) n^-1,
-// hi' = (lo + 2q - hi) w_last. Synchronisation as fwd_stages_small.
-template <int LOGN>
+// hi' = (lo + 2q - hi) w_last, or, with FOLD false, is an ordinary stage
+// under tw[1] (last unused). Synchronisation as fwd_stages_small.
+template <int LOGN, bool FOLD = true>
 __device__ __forceinline__ void inv_stages_small(uint32_t* x, int tid, const SmallLimbs& c,
                                                  const SmallLast& last) {
   constexpr int n = 1 << LOGN;
@@ -97,7 +98,7 @@ __device__ __forceinline__ void inv_stages_small(uint32_t* x, int tid, const Sma
       uint32_t* p = x + (small_row<LOGN>(tid, k) << LOGN) + off;
       const uint32_t a = p[0];
       const uint32_t b = p[t];
-      if (s + 1 < LOGN) {
+      if (s + 1 < LOGN || !FOLD) {
         p[0] = add_lazy(a, b, c.two_q[k]);
         p[t] = shoup_mul_lazy(a + c.two_q[k] - b, __ldg(c.tw[k] + w_at),
                               __ldg(c.tw_sh[k] + w_at), c.q[k]);

@@ -11,7 +11,8 @@ uint32 residues; float64 for the FFT), check device, dtype, shape and
 layout, allocate the output, launch on PyTorch's current stream, raise on a
 non-zero `cudaGetLastError()`, and count the launch in `LAUNCHES` and by
 its rows in `LAUNCH_ROWS`. They are called by the wrappers `ops.ntt.ntt` /
-`ops.ntt.intt` (K1, K2),
+`ops.ntt.intt` (K1, K2, and the stage kernel above MAX_ROW_N), `ops.ntt.ntt_stage`
+(the stage kernel, also behind parallel/ntt_sharded.py's cross stages),
 `rlwe.rgsw.ext_prod` (K3 at alpha=1, K4 at alpha>1) and `ops.fft.fft` (K5),
 which hold the plain PyTorch versions beside them.
 """
@@ -42,22 +43,30 @@ SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu"}
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
-    "ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0, "ext_prod_conv": 0, "fft": 0,
+    "ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0, "ext_prod_conv": 0, "fft": 0, "ntt_stage": 0,
 }
 # the same launches by their rows ({rows: launches}; R for the external products)
 LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
 
-# the rings the kernels take: every power of two from 8 to 131072; below
-# n = 1024 the sources launch their instantiations that hold several rows a
-# block (csrc/smallrow.cuh, fft.cu's fft_small_kernel); longer rows than
-# NTT_SUB_N (K1, K2) or EXT_SUB_N (K3, K4) are split into sub-rows of that
-# length (csrc/ntt.cu's and extprod.cu's headers): those launches take
-# Context's twiddle tables regrouped for the sub-rows (context.sub_table,
-# sub_row_tables) in place of the compact ones
-MIN_N, MAX_N = 8, 131072
+# the rows one launch of K1-K4 takes: every power of two from 8 to
+# MAX_ROW_N = 131072; below n = 1024 the sources launch their instantiations
+# that hold several rows a block (csrc/smallrow.cuh, fft.cu's
+# fft_small_kernel); longer rows than NTT_SUB_N (K1, K2) or EXT_SUB_N (K3,
+# K4) are split into sub-rows of that length (csrc/ntt.cu's and
+# extprod.cu's headers): those launches take Context's twiddle tables
+# regrouped for the sub-rows (context.sub_table, sub_row_tables) in place of
+# the compact ones
+MIN_N, MAX_ROW_N = 8, 131072
 NTT_SUB_N, EXT_SUB_N = 32768, 16384
+# the rings of ops.ntt.ntt / intt on the card: rows of n > MAX_ROW_N run
+# their first (forward) or last (inverse) log2(n / MAX_ROW_N) stages through
+# the stage kernel, the rest as K1 / K2 launches on parts of MAX_ROW_N, up
+# to MAX_N = 2^23, the largest ring that has a prime q < 2^30 with
+# q = 1 mod 2n (hostmath.gen_ntt_primes: one at 2^23, none at 2^24), so the
+# largest whose tables exist
+MAX_N = 1 << 23
 # the FFT's length m = n/2 of the codec's ring dimension n
-MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_N // 2
+MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_ROW_N // 2
 
 
 def reset_launch_counts() -> None:
@@ -142,6 +151,8 @@ _ARGTYPES = {
     "ntt": {
         "hh_ntt_fwd": [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
         "hh_ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P],
+        "hh_ntt_stage": [_P, _P, _LL, _P, _P, _LL, _P, _P, _LL, _P, _P, _P, _P, _LL, _I, _I, _I,
+                         _I, _P],
     },
     "extprod": {
         "hh_ext_prod": [_P, _P, _LL, _LL, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -184,8 +195,9 @@ def _require(t: torch.Tensor, name: str, device: torch.device, shape=None,
 
 
 def _log_n(n: int) -> int:
-    if n & (n - 1) or not MIN_N <= n <= MAX_N:
-        raise ValueError(f"the CUDA kernels take n a power of two in [{MIN_N}, {MAX_N}], got {n}")
+    if n & (n - 1) or not MIN_N <= n <= MAX_ROW_N:
+        raise ValueError(f"the CUDA kernels take rows of n a power of two in [{MIN_N}, "
+                         f"{MAX_ROW_N}], got {n}")
     return n.bit_length() - 1
 
 
@@ -201,7 +213,8 @@ def _table_shape(L: int, n: int, sub_n: int):
 
 def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor:
     """Check and launch hh_<kind> on x [..., L, n]; `per_limb` are the [L, 1]
-    constant tables in the C function's argument order."""
+    constant tables in the C function's argument order (None: a null
+    pointer)."""
     dev = x.device
     L, n = x.shape[-2], x.shape[-1]
     logn = _log_n(n)
@@ -211,7 +224,8 @@ def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor
     _require(tw, "tw", dev, _table_shape(L, n, NTT_SUB_N))
     _require(tw_sh, "tw_sh", dev, _table_shape(L, n, NTT_SUB_N))
     for i, c in enumerate(per_limb):
-        _require(c, f"per-limb table {i}", dev, (L, 1))
+        if c is not None:
+            _require(c, f"per-limb table {i}", dev, (L, 1))
     out = torch.empty_like(x)
     rows = x.numel() // n
     if rows:
@@ -219,7 +233,8 @@ def _launch_ntt(kind: str, x: torch.Tensor, tw, tw_sh, per_limb) -> torch.Tensor
         with torch.cuda.device(dev):
             rc = getattr(lib, f"hh_{kind}")(
                 x.data_ptr(), out.data_ptr(), tw.data_ptr(), tw_sh.data_ptr(),
-                *(c.data_ptr() for c in per_limb), rows, L, logn, _stream(dev),
+                *(None if c is None else c.data_ptr() for c in per_limb), rows, L, logn,
+                _stream(dev),
             )
         _check_rc(lib, rc, kind)
         _count(kind, rows)
@@ -233,11 +248,99 @@ def ntt_fwd(x: torch.Tensor, tw, tw_sh, q, two_q) -> torch.Tensor:
     return _launch_ntt("ntt_fwd", x, tw, tw_sh, (q, two_q))
 
 
-def ntt_inv(x: torch.Tensor, tw, tw_sh, q, two_q, w_last, w_last_sh, n_inv, n_inv_sh):
+def ntt_inv(x: torch.Tensor, tw, tw_sh, q, two_q, w_last=None, w_last_sh=None, n_inv=None,
+            n_inv_sh=None):
     """K2: inverse NTT of x [..., L, n]; tw/tw_sh as ntt_fwd's, the
     last-stage constants w_last/w_last_sh/n_inv/n_inv_sh [L, 1] like
-    q/two_q."""
-    return _launch_ntt("ntt_inv", x, tw, tw_sh, (q, two_q, w_last, w_last_sh, n_inv, n_inv_sh))
+    q/two_q. Without them (all None) the last stage does not fold n^-1: it
+    is an ordinary stage under tw[1], as a part of a longer row needs."""
+    last = (w_last, w_last_sh, n_inv, n_inv_sh)
+    if any(c is None for c in last) and any(c is not None for c in last):
+        raise ValueError("ntt_inv takes all four last-stage constants or none")
+    return _launch_ntt("ntt_inv", x, tw, tw_sh, (q, two_q) + last)
+
+
+def _row_stride(t: torch.Tensor, name: str) -> int:
+    """The stride s at which the rows of t [..., m] (every axis but the
+    last, flattened in order) lie: row r at r s. Raises where they do not
+    lie at one stride."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} needs unit stride on its last axis")
+    stride = None
+    for d in range(t.dim() - 2, -1, -1):
+        if t.shape[d] == 1:
+            continue
+        if stride is None:
+            stride, span = t.stride(d), t.stride(d) * t.shape[d]
+        elif t.stride(d) != span:
+            raise ValueError(f"{name}'s rows do not lie at one stride: {tuple(t.stride())}")
+        else:
+            span *= t.shape[d]
+    return t.shape[-1] if stride is None else stride
+
+
+def ntt_stage(lo: torch.Tensor, hi: torch.Tensor, w, w_sh, q, two_q, inverse: bool = False,
+              n_inv=None, n_inv_sh=None, keep=None) -> torch.Tensor:
+    """The stage kernel: one radix-2 stage on the pairs (lo, hi) of [..., L,
+    B, m] (int32 bits of lazy residues, same shape and row stride, rows at
+    one stride, 16-byte aligned; m a power of two >= 4, B a power of two),
+    block b of limb l under the twiddle w[l, b] (w/w_sh [L, B], unit stride
+    on the last axis): forward lo + hi w, lo - hi w; inverse lo + hi,
+    (lo + 2q - hi) w, with n_inv/n_inv_sh [L, 1] folding n^-1 into the
+    first (the last stage of an inverse chain). q/two_q [L, 1]. Returns the
+    pairs as [..., L, B, 2, m] (lo' then hi' in each block: in place for a
+    row whose blocks they were), or, with keep 0 or 1, only lo' or hi' as
+    [..., L, B, m]."""
+    dev = lo.device
+    *lead, L, B, m = lo.shape
+    if tuple(hi.shape) != tuple(lo.shape):
+        raise ValueError(f"lo {tuple(lo.shape)} and hi {tuple(hi.shape)} differ in shape")
+    if m < 4 or m & (m - 1) or B & (B - 1):
+        raise ValueError(f"the stage kernel takes m a power of two >= 4 and B a power of two, "
+                         f"got m={m}, B={B}")
+    if (n_inv is None) != (n_inv_sh is None) or (n_inv is not None and not inverse):
+        raise ValueError("n_inv and n_inv_sh fold n^-1 into an inverse stage, both or neither")
+    if keep not in (None, 0, 1):
+        raise ValueError(f"keep must be None, 0 or 1, got {keep}")
+    strides = []
+    for t, nm in ((lo, "lo"), (hi, "hi")):
+        if not t.is_cuda or t.device != dev or t.dtype != torch.int32:
+            raise ValueError(f"{nm} must be an int32 CUDA tensor on {dev}")
+        strides.append(_row_stride(t, nm))
+        if strides[-1] % 4 or t.data_ptr() % 16:
+            raise ValueError(f"{nm} needs 16-byte aligned rows")
+    if strides[0] != strides[1]:
+        raise ValueError(f"lo and hi rows lie at different strides {strides}")
+    for t, nm in ((w, "w"), (w_sh, "w_sh")):
+        if (not t.is_cuda or t.device != dev or t.dtype != torch.int32
+                or tuple(t.shape) != (L, B) or (B > 1 and t.stride(1) != 1)):
+            raise ValueError(f"{nm} must be an int32 CUDA tensor [L, B] = [{L}, {B}] with unit "
+                             f"stride on its last axis")
+    if w.stride(0) != w_sh.stride(0):
+        raise ValueError("w and w_sh rows lie at different strides")
+    consts = [q, two_q] + ([n_inv, n_inv_sh] if n_inv is not None else [])
+    for i, c in enumerate(consts):
+        _require(c, f"per-limb table {i}", dev, (L, 1))
+    rows = lo.numel() // (L * B * m)
+    if keep is None:
+        out = torch.empty((*lead, L, B, 2, m), dtype=torch.int32, device=dev)
+        outs, out_stride = (out[..., 0, :], out[..., 1, :]), 2 * m
+    else:
+        out = torch.empty((*lead, L, B, m), dtype=torch.int32, device=dev)
+        outs, out_stride = (out, None) if keep == 0 else (None, out), m
+    if rows:
+        lib = _lib("ntt")
+        with torch.cuda.device(dev):
+            rc = lib.hh_ntt_stage(
+                lo.data_ptr(), hi.data_ptr(), strides[0],
+                *(None if o is None else o.data_ptr() for o in outs), out_stride,
+                w.data_ptr(), w_sh.data_ptr(), w.stride(0), q.data_ptr(), two_q.data_ptr(),
+                None if n_inv is None else n_inv.data_ptr(),
+                None if n_inv_sh is None else n_inv_sh.data_ptr(),
+                rows, L, B.bit_length() - 1, m.bit_length() - 3, int(inverse), _stream(dev))
+        _check_rc(lib, rc, "ntt_stage")
+        _count("ntt_stage", rows * L * B)
+    return out
 
 
 def _require_rows(t: torch.Tensor, name: str, device: torch.device) -> None:

@@ -12,7 +12,10 @@ conversion of each group of alpha limbs into every extended limb.
 `ks_digits` + `ks_contract` are the plain PyTorch external product.
 `ext_prod` launches the fused CUDA kernel K3 (alpha=1) or K4 (alpha>1),
 both in csrc/extprod.cu, for a CUDA tensor and runs the plain pair for a
-CPU tensor.
+CPU tensor. `ext_prod_strict` is its second half, from the strict
+coefficient-form source limbs, for any destination limbs of the key: a
+rank of parallel/mesh.py's limb mesh gathers the source limbs and computes
+only its own destination limbs (and the special primes).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 from hehub_tpu_torch import kernels
 from hehub_tpu_torch.core import basecnv, rns
 from hehub_tpu_torch.core.context import Context
-from hehub_tpu_torch.core.rns import NTT, RnsPoly
+from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly
 from hehub_tpu_torch.ops import modarith as ma
 from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
@@ -130,21 +133,27 @@ def _converted_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
     )
 
 
-def ks_digits(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
-    """Key-switch digit decomposition of `poly` in NTT form over the
-    extended limbs: [..., D, L_ext, n]. alpha=1: the strict coefficients of
-    each limb, broadcast across the extended limbs (a strict digit < q_i <
-    2^30 <= 2 q_j is a valid lazy input under every 30-bit q_j); alpha>1:
-    the signed base conversion of each limb group."""
-    _check_ext(poly, rgsw)
-    d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly))
+def _strict_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
+    """Key-switch digits of the strict coefficient-form `d` (every source
+    limb) under the key's destination limbs, NTT form: [..., D, L_ext, n].
+    alpha=1: the strict coefficients of each limb, broadcast across the
+    destination limbs (a strict digit < q_i < 2^30 <= 2 q_j is a valid lazy
+    input under every 30-bit q_j); alpha>1: the signed base conversion of
+    each limb group."""
     if rgsw.alpha == 1:
-        l, n = poly.limb_count, poly.dimension
+        l, n = d.limb_count, d.dimension
         digits = d.data[..., :, None, :].expand(*d.batch_shape, l, len(rgsw.limb_ids), n)
         digits = digits.contiguous()
     else:
         digits = _converted_digits(ctx, d, rgsw)
     return nttmod.ntt(ctx, digits, rgsw.limb_ids)
+
+
+def ks_digits(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
+    """Key-switch digit decomposition of `poly` in NTT form over the
+    extended limbs: [..., D, L_ext, n] (_strict_digits)."""
+    _check_ext(poly, rgsw)
+    return _strict_digits(ctx, rns.reduce_strict(ctx, rns.to_coeff(ctx, poly)), rgsw)
 
 
 def ks_contract(ctx: Context, digits: torch.Tensor, rgsw: RgswCt) -> rlwe_mod.RlweCt:
@@ -176,15 +185,30 @@ def ext_prod(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
     give c0 and c1 as [R, L_ext, n]. A CPU tensor goes through
     ks_contract(ks_digits(...)); both are bitwise equal."""
     _check_ext(poly, rgsw)
-    dev = poly.data.device
+    return ext_prod_strict(ctx, rns.reduce_strict(ctx, rns.to_coeff(ctx, poly)), rgsw)
+
+
+def ext_prod_strict(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
+    """The external product of the strict coefficient-form source limbs `d`
+    (every limb the key's digit rows cover) with the key rows, over the
+    key's limb_ids: any destination limbs, each computed as ext_prod
+    computes it (so a subset gives those limbs of ext_prod's result,
+    bitwise). K3 / K4 for a CUDA tensor, ks_contract of the plain digits
+    for a CPU tensor."""
+    if d.form != COEFF:
+        raise ValueError("ext_prod_strict expects strict coefficient-form source limbs")
+    groups = len(_digit_groups(d.limb_count, rgsw.alpha))
+    if groups > rgsw.rows:
+        raise ValueError(f"key has {rgsw.rows} digit rows but {d.limb_count} source limbs at "
+                         f"alpha={rgsw.alpha} need {groups}")
+    dev = d.data.device
     if dev.type != "cuda":
         if dev.type != "cpu":
             raise ValueError(f"no ext_prod for tensors on {dev}")
-        return ks_contract(ctx, ks_digits(ctx, poly, rgsw), rgsw)
+        return ks_contract(ctx, _strict_digits(ctx, d, rgsw), rgsw)
     ids_ext = rgsw.limb_ids
-    l, n = poly.limb_count, poly.dimension
-    batch = poly.batch_shape
-    d = rns.reduce_strict(ctx, rns.to_coeff(ctx, poly))
+    l, n = d.limb_count, d.dimension
+    batch = d.batch_shape
     names = nttmod.EXT_SPLIT_TABLES if n > kernels.EXT_SUB_N else nttmod.EXT_TABLES
     tabs = [ctx.device_rows(nm, ids_ext, dev, torch.int32) for nm in names]
     if rgsw.alpha == 1:

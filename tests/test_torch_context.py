@@ -61,7 +61,9 @@ def test_port_imports_no_jax():
         "import sys, hehub_tpu_torch.models.ckks, hehub_tpu_torch.kernels, "
         "hehub_tpu_torch.convert, hehub_tpu_torch.rlwe.keys, hehub_tpu_torch.config, "
         "hehub_tpu_torch.ops.fft, hehub_tpu_torch.core.basecnv, "
-        "hehub_tpu_torch.utils.profiling, chip_smoke; "
+        "hehub_tpu_torch.utils.profiling, hehub_tpu_torch.parallel.mesh, "
+        "hehub_tpu_torch.parallel.ntt_sharded, hehub_tpu_torch.parallel.pipeline, "
+        "hehub_tpu_torch.entry, chip_smoke; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'hehub_tpu.'))]; "
         "assert not bad, bad"
     )
