@@ -3,14 +3,16 @@
 kernels, holds each against its plain PyTorch version at the shapes of the
 paths that run it, then drives the CKKS main path, the hybrid
 key-switching path, the small-ring path, the circuits path, BGV, the
-bootstrapped TFHE NAND, the CKKS bootstrap, the large ring and the
-multi-rank paths (parallel/*) end to end and checks their results.
+bootstrapped TFHE NAND, the CKKS bootstrap, the large ring, the
+multi-rank paths (parallel/*), the bootstrap at n=16384 and the examples
+end to end and checks their results.
 
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
   1. device: the card's name and power limit (nvidia-smi); no card, no run;
-  2. build: nvcc of hehub_tpu_torch/csrc/*.cu for sm_90a, timed;
+  2. build: nvcc of hehub_tpu_torch/csrc/*.cu for sm_90a, and g++ of the
+     host runtime (csrc/host/hehub_native.cpp), timed;
   3. kernels vs plain, at their paths' shapes: K1 (forward NTT) and K2
      (inverse NTT) on [64, 7, 16384]; K3 (alpha=1 external product) with
      R=64, l=7, L_ext=8; K4 (alpha=2 external product) with R=64, D=6,
@@ -30,7 +32,9 @@ Phases, each printing its own lines:
      timed kernel-only and per call beside its bound at those rows, and
      the launch-weighted sums of those kernel-only times (Σ over a run's or
      a step's launches of the time at their row count) per path, per step
-     and over all paths;
+     and over all paths; utils/profiling's roofline reports (the
+     reference's operation counts) of K1 on [64, 7, 16384] and of the int64
+     mul_mod_lazy chain on two such operands, with modmul_gops;
   3b. small rings: K1-K4 bitwise against their plain versions at n = 8,
      16, 64, 256, 512 (their several-rows-a-block instantiations), 1, 3
      and 133 rows, 1 and 4 limbs (+2 special), K5 at m = 4, 8, 128, 256;
@@ -136,7 +140,21 @@ Phases, each printing its own lines:
      sequential, the stage kernel timed as in phase 3 at the sharded NTT's
      and at n=262144's shapes; the shared-card lines say they are not
      multi-GPU numbers;
-  13. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
+  13. CKKS bootstrapping at the reference's flagship bench_bootstrap(n=16384),
+     as phase 10 and not cut: 28+3 limbs, the 62 rotation keys, 64 keys
+     of 227.5 MB; the host seconds of the set-up (matrices, rotation steps,
+     keygen, discovery, materialisation, capture), key and plan GB, peak
+     device memory; batch 1 and 8, captured bitwise equal to eager, decoded
+     within 1e-3, K1/K2/K3/K5 launched, the CPU replay (mod_raise and
+     c2sR0 alone: the pair took 145 s of the host's CPU); times under
+     bench.py's ckks_bootstrap_16384_* names (batch 8: the captured refresh
+     only); K1/K2 at the refresh's most launched row counts, K3 at R=8,
+     l=28, L_ext=31 and K5 on [D, 8192] as `*_boot16` records; traces;
+  14. the examples (hehub_tpu_torch.examples) on the card: the CKKS Basel
+     series over 10000 terms, BGV (a + b)·c mod t exact, the TFHE NAND
+     truth table at PRESET_GATE_128, each its own check, with wall seconds
+     and K1/K2/K3/K5 launches;
+  15. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
      `launch_weighted_kernel_ms`; then the five small-ring records
      `*_small_n` / `fft_small_m`, whose launches are the small-ring
@@ -146,8 +164,10 @@ Phases, each printing its own lines:
      `ntt_inv_large`, `ext_prod_large`, `ext_prod_conv_large`, `fft_large`,
      whose launches are phase 11's, each with its n=131072 numbers; then
      `ntt_stage`, the stage kernel, whose launches are phase 12's, and
-     `ntt_fwd_staged` / `ntt_inv_staged`, K1 / K2 at n=262144); the card
-     line; last, the result line {"ok": true, "device": {...}}.
+     `ntt_fwd_staged` / `ntt_inv_staged`, K1 / K2 at n=262144; the
+     `*_boot16` records, whose launches are phase 13's; phase 14's launches
+     join K1-K5's `launches_by_path` as "examples"); the card line; last,
+     the result line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
 A kernel-only time is read from a window of the profiler's trace that
@@ -178,7 +198,10 @@ from hehub_tpu_torch.core.context import (RlweParams, create_bgv_params, create_
                                           make_context)
 from hehub_tpu_torch.core.rns import RnsPoly
 from hehub_tpu_torch.models import bgv, ckks, tfhe
+from hehub_tpu_torch.examples import bgv_example, ckks_example, tfhe_example
+from hehub_tpu_torch.native import loader as native_loader
 from hehub_tpu_torch.ops import fft as fftmod
+from hehub_tpu_torch.ops import modarith as ma
 from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.parallel import mesh as pmesh
 from hehub_tpu_torch.parallel import ntt_sharded
@@ -190,7 +213,8 @@ from hehub_tpu_torch.utils import hostmath as hm
 from hehub_tpu_torch.utils import noise
 from hehub_tpu_torch.utils import serialization
 from hehub_tpu_torch.utils.profiling import (ProfilerFault, device_time, device_trace,
-                                              kernel_time, step_time)
+                                              kernel_time, modmul_roofline, ntt_roofline,
+                                              op_counters, step_time)
 
 N = 16384
 NTT_KERNELS = ("ntt_fwd", "ntt_inv")
@@ -265,6 +289,11 @@ BOOT_K_BOUND = 5
 BOOT_D_IN = 2.0**26
 BOOT_BATCH = 8
 MAX_ERR_BOOT = 1e-3
+# Phase 13, the same refresh at the reference's flagship ring,
+# bench_bootstrap(16384) (bench.py:770-787): nothing cut
+BOOT16_N = 16384
+# Phase 14, the examples' sizes: the Basel series over EXAMPLE_TERMS terms
+EXAMPLE_TERMS = 10000
 # Phase 11, CKKS at n=65536, a ring above the kernels' sub-rows of 32768:
 # 40 + 4 limbs of 30 bits (1318 bits of log QP), batch 8, alpha=4 relin and
 # rotation keys, an alpha=1 relin key (K3); the rotate's bound is looser
@@ -309,6 +338,7 @@ STAGED_SHAPE = (2, 4)
 
 # Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
 HBM_BYTES_PER_S = 3.35e12  # data sheet
+HBM_GBPS = HBM_BYTES_PER_S / 1e9  # the same, for utils/profiling's roofline reports
 FP64_PER_S = 34e12  # data sheet, FP64 outside the tensor cores
 INT32_PER_S = 132 * 64 * 1.98e9  # 64 INT32 lanes per SM (white paper), 132 SMs, 1.98 GHz
 # uint32 operations of csrc/modarith.cuh: a forward (Cooley-Tukey) Shoup
@@ -573,6 +603,24 @@ def kernels_vs_plain(ctx, hctx, dev):
     )
     summarize(records)
     print(f"[kernels] int64<->int32 conversions at [{BATCH},{LEVELS},{N}]: {json.dumps(conv_ms)}")
+
+    # utils/profiling's roofline reports, the reference's counts (18 lane
+    # operations a butterfly, 20 a Montgomery product, 4-byte residues; the
+    # records above count 11 a forward butterfly): K1 on [64, 7, 16384]
+    # kernel-only, and the raw int64 mul_mod_lazy chain on two such operands
+    # (bench.py:648-662), per call
+    y = lazy_residues(gen, (BATCH, LEVELS, N), two_q)
+    mm_tabs = [ctx.device_rows(nm, ids, dev) for nm in ("q", "neg_qinv", "r_mod_q", "r_shoup")]
+    check(torch.equal(ma.mul_mod_lazy(x, y, *mm_tabs) % q, x * y % q),
+          "mul_mod_lazy is not x * y mod q")
+    k1_ms = records["ntt_fwd"]["kernel_ms"] or records["ntt_fwd"]["ms"]
+    rl_ntt = ntt_roofline(k1_ms / 1e3, N, BATCH * LEVELS)
+    rl_mm = modmul_roofline(device_time(lambda: ma.mul_mod_lazy(x, y, *mm_tabs)), x.numel())
+    print(f"[kernels] rooflines (utils/profiling, the reference's counts), {card_line()}: "
+          f"{rl_ntt.report('ntt_fwd', hbm_gbps=HBM_GBPS)} "
+          f"({'kernel-only' if records['ntt_fwd']['kernel_ms'] else 'per call'}); "
+          f"{rl_mm.report(f'modmul {x.numel()} elems', hbm_gbps=HBM_GBPS)} (per call, "
+          f"PyTorch int64 kernels); modmul_gops {rl_mm.gops_per_s}")
     return records
 
 
@@ -1443,17 +1491,19 @@ def _boot_ct_on_cpu(ct):
                        ct.scaling_factor)
 
 
-def boot_cpu_replay(booter, ct):
+def boot_cpu_replay(tag, booter, ct, pair=True):
     """mod_raise and the first CoeffToSlot pair (c2sR0, c2sI0 under one
-    set of hoisted babies) of the batch-1 ciphertext, on the card and on
-    the CPU through the plain versions, with the card's keys and plan
-    plaintexts (a strict CPU Bootstrapper: no plan is encoded there)."""
+    set of hoisted babies; c2sR0 alone without `pair`) of the batch-1
+    ciphertext, on the card and on the CPU through the plain versions,
+    with the card's keys and plan plaintexts (a strict CPU Bootstrapper:
+    no plan is encoded there)."""
     ctx, params = booter.ctx, booter.params
     c2s_r, c2s_im, _, _ = bs._merged_chain_matrices(params.dimension, booter.lt_stages)
     raised = bs.mod_raise(ctx, ct)
     target = raised.scaling_factor * booter._balanced_pt_scale(raised, len(c2s_r))
-    specs = (("c2sR0", c2s_r[0]), ("c2sI0", c2s_im[0]))
-    card = booter._lt_pair(*specs, raised, target)
+    specs = (("c2sR0", c2s_r[0]), ("c2sI0", c2s_im[0]))[:2 if pair else 1]
+    card = (booter._lt_pair(*specs, raised, target) if pair
+            else [booter._lt(*specs[0], raised, target)])
     plans = [booter._plan(name, M, raised, target) for name, M in specs]
     t0 = time.perf_counter()
     cpu = bs.Bootstrapper(ctx, params, None, _boot_keys_on_cpu(booter, plans), None,
@@ -1463,18 +1513,22 @@ def boot_cpu_replay(booter, ct):
         cpu._plans[(name, raised.c0.limb_count, raised.scaling_factor, target)] = _plan_on_cpu(plan)
     cpu._strict = True
     raised_c = bs.mod_raise(ctx, _boot_ct_on_cpu(ct))
-    got = cpu._lt_pair(*specs, raised_c, target)
+    got = (cpu._lt_pair(*specs, raised_c, target) if pair
+           else [cpu._lt(*specs[0], raised_c, target)])
     seconds = time.perf_counter() - t0
-    for tag, c, k in (("mod_raise", raised_c, raised), ("c2sR0", got[0], card[0]),
-                      ("c2sI0", got[1], card[1])):
+    for what, c, k in (("mod_raise", raised_c, raised), *(
+            (name, g, w) for (name, _), g, w in zip(specs, got, card))):
         check(c.limb_ids == k.limb_ids and c.scaling_factor == k.scaling_factor
               and torch.equal(c.c0.data, k.c0.data.cpu())
               and torch.equal(c.c1.data, k.c1.data.cpu()),
-              f"bootstrap: the card's {tag} differs from the plain CPU path")
-    print(f"[bootstrap] plain CPU replay of mod_raise and the first CoeffToSlot pair (c2sR0 with "
-          f"{len(plans[0].pts)} diagonals, c2sI0 with {len(plans[1].pts)}, shared hoisted "
-          f"babies; the card's keys and plan plaintexts) on the batch-1 ciphertext: bitwise equal "
-          f"to the card's ({seconds:.1f} s on the CPU)")
+              f"{tag}: the card's {what} differs from the plain CPU path")
+    done = (f"the first CoeffToSlot pair (c2sR0 with {len(plans[0].pts)} diagonals, c2sI0 with "
+            f"{len(plans[1].pts)}, shared hoisted babies)" if pair else
+            f"c2sR0 alone ({len(plans[0].pts)} diagonals; not c2sI0, to keep the replay short)")
+    print(f"[{tag}] plain CPU replay of mod_raise and {done}, with the card's keys and plan "
+          f"plaintexts, on the batch-1 ciphertext: bitwise equal to the card's "
+          f"({seconds:.1f} s on the CPU)")
+    return seconds
 
 
 def _decode_err(ctx, params, out, sk, v):
@@ -1484,32 +1538,40 @@ def _decode_err(ctx, params, out, sk, v):
     return float(np.abs(got - v).max())
 
 
-def boot_kernel_records(ctx, dev, booter, refresh_rows):
+def boot_kernel_records(ctx, dev, booter, refresh_rows, suffix, every_row_count):
     """K1/K2 at every row count of one eager batch-1 refresh (the phase 3
-    row sweep at n=4096, 31 limbs), each record's main numbers at its most
+    row sweep at the refresh's ring, 31 limbs; with every_row_count False
+    only at the most launched one), each record's main numbers at its most
     launched row count; K3 at the refresh's largest launch (R=8 of the
-    batch-8 call, l=28 digits, L_ext=31); K5 on [D, 2048] at the most
+    batch-8 call, l=28 digits, L_ext=31); K5 on [D, n/2] at the most
     diagonals of a plan that took the device codec; each bitwise against
-    its plain version, timed as in phase 3."""
-    sweep = ntt_row_sweep(ctx, dev, (refresh_rows,))
+    its plain version, timed as in phase 3. Records are named
+    `<kernel><suffix>`."""
+    most = {kind: max(refresh_rows[kind], key=lambda r: (refresh_rows[kind][r], r))
+            for kind in NTT_KERNELS}
+    sweep = ntt_row_sweep(ctx, dev, (refresh_rows if every_row_count else
+                                     {kind: {most[kind]: 1} for kind in NTT_KERNELS},))
     n = ctx.params.dimension
     ids_all = tuple(range(len(ctx.params.moduli))) + ctx.special_indices
     records = {}
     for kind, names, plain in (("ntt_fwd", nttmod.FWD_TABLES, nttmod.ntt_fwd),
                                ("ntt_inv", nttmod.INV_TABLES, nttmod.ntt_inv)):
-        rows = max(refresh_rows[kind], key=lambda r: (refresh_rows[kind][r], r))
+        rows = most[kind]
         rec = dict(sweep[kind][rows])
         ids = ids_all[:rec["limbs"]]
         x = lazy_residues(torch.Generator(device=dev).manual_seed(4),
                           (rows // rec["limbs"], rec["limbs"], n), ctx.device_rows("two_q", ids, dev))
         t64 = [ctx.device_rows(nm, ids, dev) for nm in names]
-        records[f"{kind}_boot"] = dict(
-            **origin(kind), match="bitwise vs plain at every row count", max_abs_err=0,
+        records[f"{kind}{suffix}"] = dict(
+            **origin(kind), max_abs_err=0,
+            match=("bitwise vs plain at every row count" if every_row_count else
+                   "bitwise vs plain at the most launched row count"),
             shape=f"[{rows // rec['limbs']}, {rec['limbs']}, {n}]", **rec,
             plain_ms=device_time(lambda: plain(x, *t64), 1, 3) * 1e3, library_ms=None,
             by_rows=[dict(rows=r, launches_refresh=refresh_rows[kind].get(r, 0), **v)
                      for r, v in sweep[kind].items()],
-            launch_weighted_kernel_ms=weighted_ms(refresh_rows[kind], sweep[kind]))
+            launch_weighted_kernel_ms=(weighted_ms(refresh_rows[kind], sweep[kind])
+                                       if every_row_count else None))
         del x
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -1522,7 +1584,7 @@ def boot_kernel_records(ctx, dev, booter, refresh_rows):
     d32, key32 = nttmod.to_u32_bits(digits), nttmod.to_u32_bits(booter.rlk.data[:l])
     got = nttmod.from_u32_bits(kernels.ext_prod(d32, key32, *ext32))
     want = plain_ext_prod(ctx, digits, booter.rlk)
-    records["ext_prod_boot"] = dict(
+    records[f"ext_prod{suffix}"] = dict(
         **origin("ext_prod"), match="bitwise", shape=f"R={R}, l={l}, L_ext={L_ext}, n={n}",
         max_abs_err=max(int((got[0] - want.c0.data).abs().max()),
                         int((got[1] - want.c1.data).abs().max())),
@@ -1534,14 +1596,14 @@ def boot_kernel_records(ctx, dev, booter, refresh_rows):
     del digits, d32, key32, got, want
 
     device_plans = [p for p in booter._plans.values() if p.codec == "device"]
-    check(device_plans, "bootstrap: no plan took the device codec (K5)")
+    check(device_plans, f"n={n} bootstrap: no plan took the device codec (K5)")
     D, m = max(len(p.pts) for p in device_plans), n // 2
     tw = fftmod._device_tables(m, str(dev))
     re, im = (torch.rand((D, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
               for _ in range(2))
     got, want = kernels.fft(re, im, *tw), fftmod.fft_plain(re, im, m)
     natural = torch.complex(re, im)
-    records["fft_boot"] = dict(
+    records[f"fft{suffix}"] = dict(
         **origin("fft"), match="bitwise vs plain", shape=f"[{D}, {m}]",
         max_abs_err=max(float((got[0] - want[0]).abs().max()),
                         float((got[1] - want[1]).abs().max())),
@@ -1555,82 +1617,106 @@ def boot_kernel_records(ctx, dev, booter, refresh_rows):
     return records
 
 
-def bootstrap_path(dev):
-    """Phase 10: CKKS bootstrapping at bench.py's bench_bootstrap(n=4096):
-    make_boot_params(4096, 28, num_special=3) (Δ = q1·q2 ≈ 2^60), a sparse
-    secret (h=8), alpha=1 relinearization and conjugation keys and the 52
-    rotation keys of the three-stage factored transforms, made on the card;
+def bootstrap_path(dev, n, flagship=False):
+    """Phase 10 (n=BOOT_N, bench.py's bench_bootstrap(4096)) and phase 13
+    (flagship: n=BOOT16_N, bench_bootstrap(16384), reported under
+    bench.py's ckks_bootstrap_16384_* names): make_boot_params(n, 28,
+    num_special=3) (Δ = q1·q2 ≈ 2^60), a sparse secret (h=8), alpha=1
+    relinearization and conjugation keys and the rotation keys of the
+    three-stage factored transforms, made on the card;
     Bootstrapper(k_bound=5, degree=63, arcsine=True, lt_stages=3) and
-    CompiledBootstrapper(split=True); v uniform in [-1, 1]^2048 at Δ_in =
+    CompiledBootstrapper(split=True); v uniform in [-1, 1]^(n/2) at Δ_in =
     2^26 on one limb. The eager and the captured refresh of one ciphertext
     and of a batch of 8, decoded within MAX_ERR_BOOT of v, bitwise equal;
     K1, K2, K3 and K5 launched; the launches of one eager refresh; a CPU
-    replay of mod_raise and the first CoeffToSlot pair; the kernels at the
+    replay of mod_raise and the first CoeffToSlot pair (phase 13: c2sR0
+    alone); the kernels at the
     refresh's shapes; then CUDA-event times (whole refresh, per stage, per
-    ciphertext at batch 8) and traces of one eager and one captured refresh.
-    Returns (launch counts of the phase, the `*_boot` kernel records)."""
-    params = bs.make_boot_params(BOOT_N, BOOT_LEVELS, num_special=BOOT_SPECIAL)
+    ciphertext at batch 8: phase 13 times the captured batch-8 refresh
+    only) and traces of one eager and one captured refresh. Phase 13 also
+    prints the host seconds of the set-up and the peak device memory.
+    Returns (launch counts of the phase, the `*_boot` / `*_boot16` kernel
+    records)."""
+    tag = "bootstrap16" if flagship else "bootstrap"
+    params = bs.make_boot_params(n, BOOT_LEVELS, num_special=BOOT_SPECIAL)
     ctx = make_context(params)
-    slots = BOOT_N // 2
+    slots = n // 2
     v = np.random.default_rng(3).uniform(-1, 1, slots)
     v8 = np.random.default_rng(4).uniform(-1, 1, (BOOT_BATCH, slots))
     gen = torch.Generator(device=dev).manual_seed(51)
-    print(f"[bootstrap] n={BOOT_N} L={BOOT_LEVELS}+{BOOT_SPECIAL}, log2 Δ = "
+    print(f"[{tag}] n={n} L={BOOT_LEVELS}+{BOOT_SPECIAL}, log2 Δ = "
           f"{np.log2(params.initial_scaling_factor):.4f}, Δ_in = 2^{np.log2(BOOT_D_IN):.0f}, "
           f"degree {BOOT_DEGREE}, arcsine, lt_stages={BOOT_LT_STAGES}")
 
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     kernels.reset_launch_counts()
     t_phase = t0 = time.perf_counter()
+    host = dict(matrices=0.0)
+    bs._merged_chain_matrices(n, BOOT_LT_STAGES)
+    host["matrices"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    steps = bs.bootstrap_rotation_steps(params, BOOT_LT_STAGES)
+    host["rotation_steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     sk = rlwe_mod.keygen(ctx, gen, hamming_weight=8)
     rlk = keys_mod.relin_key(ctx, sk, gen)
-    rks = {st: keys_mod.rot_key(ctx, sk, st, gen)
-           for st in bs.bootstrap_rotation_steps(params, BOOT_LT_STAGES)}
+    rks = {st: keys_mod.rot_key(ctx, sk, st, gen) for st in steps}
     ck = keys_mod.conj_key(ctx, sk, gen)
     enc = lambda x: ckks.encrypt(ctx, ckks.encode(x, params, scaling_factor=BOOT_D_IN,  # noqa: E731
                                                   level=BOOT_LEVELS - 1, device=dev), sk, gen)
     ct, ct8 = enc(v), enc(v8)
     torch.cuda.synchronize()
-    t_keys = time.perf_counter() - t0
+    host["keygen"] = t_keys = time.perf_counter() - t0
     booter = bs.Bootstrapper(ctx, params, rlk, rks, ck, k_bound=BOOT_K_BOUND, degree=BOOT_DEGREE,
                              arcsine=True, lt_stages=BOOT_LT_STAGES)
     t0 = time.perf_counter()
     refresh = bs.CompiledBootstrapper(booter, ct, split=True)
     t_compiled = time.perf_counter() - t0
+    host.update({f"compiled_{k}": t for k, t in refresh.timings.items()})
     key_bytes = sum(k.data.numel() * 8 for k in (rlk, ck, *rks.values()))
     plan_bytes = sum(pt.data.numel() * 8 for p in booter._plans.values() for pt in p.pts.values())
-    print(f"[bootstrap] keygen + {len(rks)} rotation keys + encrypt {t_keys:.3f} s, keys "
+    print(f"[{tag}] keygen + {len(rks)} rotation keys + encrypt {t_keys:.3f} s, keys "
           f"{key_bytes / 1e9:.3f} GB as int64; CompiledBootstrapper(split=True) {t_compiled:.3f} s "
           f"{json.dumps(refresh.timings)}; {len(booter._plans)} plans, {plan_bytes / 1e9:.3f} GB, "
           f"{len(booter._consts.pts)} constant plaintexts")
-    print("[bootstrap] plans (name, limbs): diagonals, codec: " + json.dumps(
+    print(f"[{tag}] plans (name, limbs): diagonals, codec: " + json.dumps(
         {f"{k[0]} L{k[1]}": f"{len(p.pts)}, {p.codec}" for k, p in booter._plans.items()}))
 
     n_plans = len(booter._plans)
     eager = booter(ct)
     captured = refresh(ct)
-    check(len(booter._plans) == n_plans, "bootstrap: a second eager refresh added a plan")
-    check(_same_ct(captured, eager), "bootstrap: the captured refresh differs from the eager one")
-    check(eager.c0.limb_count >= 3, f"bootstrap: {eager.c0.limb_count} limbs after the refresh")
+    check(len(booter._plans) == n_plans, f"{tag}: a second eager refresh added a plan")
+    check(_same_ct(captured, eager), f"{tag}: the captured refresh differs from the eager one")
+    check(eager.c0.limb_count >= 3, f"{tag}: {eager.c0.limb_count} limbs after the refresh")
     err = _decode_err(ctx, params, eager, sk, v)
-    check(err <= MAX_ERR_BOOT, f"bootstrap: decode error {err} above {MAX_ERR_BOOT}")
+    check(err <= MAX_ERR_BOOT, f"{tag}: decode error {err} above {MAX_ERR_BOOT}")
     t0 = time.perf_counter()
     refresh8 = bs.CompiledBootstrapper(booter, ct8, split=True)
     t_compiled8 = time.perf_counter() - t0
+    host.update({f"compiled8_{k}": t for k, t in refresh8.timings.items()})
     eager8 = booter(ct8)
     captured8 = refresh8(ct8)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    check(_same_ct(captured8, eager8), "bootstrap: the captured batch-8 refresh differs from eager")
+    check(_same_ct(captured8, eager8), f"{tag}: the captured batch-8 refresh differs from eager")
     err8 = _decode_err(ctx, params, eager8, sk, v8)
-    check(err8 <= MAX_ERR_BOOT, f"bootstrap: batch-8 decode error {err8} above {MAX_ERR_BOOT}")
+    check(err8 <= MAX_ERR_BOOT, f"{tag}: batch-8 decode error {err8} above {MAX_ERR_BOOT}")
     for name in ("ntt_fwd", "ntt_inv", "ext_prod", "fft"):
-        check(launches[name] > 0, f"kernel {name} was not launched on the bootstrap path")
-    print(f"[bootstrap] refresh: {eager.c0.limb_count} limbs out, scale 2^"
+        check(launches[name] > 0, f"kernel {name} was not launched on the n={n} bootstrap path")
+    print(f"[{tag}] refresh: {eager.c0.limb_count} limbs out, scale 2^"
           f"{np.log2(eager.scaling_factor):.4f}; captured == eager bitwise (batch 1 and 8); max|"
           f"decoded - v| {err:.3e} (batch 1), {err8:.3e} (batch 8, every row), bound "
           f"{MAX_ERR_BOOT}; batch-8 CompiledBootstrapper {t_compiled8:.3f} s "
           f"{json.dumps(refresh8.timings)}; launches of the phase {json.dumps(launches)}")
+    del eager8, captured8
+    if flagship:
+        stats = op_counters()
+        print(f"[{tag}] device memory, {card_line()}: peak allocated "
+              f"{stats['allocated_bytes.all.peak'] / 1e9:.3f} GB, now allocated "
+              f"{stats['allocated_bytes.all.current'] / 1e9:.3f} GB, reserved "
+              f"{stats['reserved_bytes.all.current'] / 1e9:.3f} GB (keys {key_bytes / 1e9:.3f} GB, "
+              f"plans {plan_bytes / 1e9:.3f} GB as int64)")
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -1638,14 +1724,14 @@ def bootstrap_path(dev):
     torch.cuda.synchronize()
     refresh_launches = dict(kernels.LAUNCHES)
     refresh_rows = {k: dict(kernels.LAUNCH_ROWS[k]) for k in NTT_KERNELS}
-    print(f"[bootstrap] launches of one eager batch-1 refresh {json.dumps(refresh_launches)}; "
+    print(f"[{tag}] launches of one eager batch-1 refresh {json.dumps(refresh_launches)}; "
           f"K1/K2 by rows {{rows: launches}}: {json.dumps(refresh_rows)}")
     seconds = dict(drive=time.perf_counter() - t_phase)
+    # at n=16384 the pair took 145 s of the card host's CPU: c2sR0 alone there
+    seconds["cpu_replay"] = boot_cpu_replay(tag, booter, ct, pair=not flagship)
     t0 = time.perf_counter()
-    boot_cpu_replay(booter, ct)
-    seconds["cpu_replay"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    records = boot_kernel_records(ctx, dev, booter, refresh_rows)
+    records = boot_kernel_records(ctx, dev, booter, refresh_rows,
+                                  "_boot16" if flagship else "_boot", not flagship)
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
 
@@ -1654,40 +1740,64 @@ def bootstrap_path(dev):
     wre, wim = fb_re(*a[:2]), fb_im(*a[2:])
     z_re, z_im = booter.coeff_to_slot(bs.mod_raise(ctx, ct))
     w_re, w_im = booter.eval_mod(z_re), booter.eval_mod(z_im)
-    metrics = dict(
-        ckks_bootstrap_ms_per_refresh=device_time(lambda: refresh(ct), 1, 5) * 1e3,
-        bootstrap_c2s_ms=device_time(lambda: fa(ct.c0.data, ct.c1.data), 1, 5) * 1e3,
-        bootstrap_evalmod_re_ms=device_time(lambda: fb_re(*a[:2]), 1, 5) * 1e3,
-        bootstrap_evalmod_im_ms=device_time(lambda: fb_im(*a[2:]), 1, 5) * 1e3,
-        bootstrap_s2c_ms=device_time(lambda: fc(*wre, *wim), 1, 5) * 1e3,
-        ckks_bootstrap_ms_per_ct_batch8=device_time(lambda: refresh8(ct8), 1, 3) * 1e3 / BOOT_BATCH,
+    stage_ms = dict(
+        c2s=device_time(lambda: fa(ct.c0.data, ct.c1.data), 1, 5) * 1e3,
+        evalmod_re=device_time(lambda: fb_re(*a[:2]), 1, 5) * 1e3,
+        evalmod_im=device_time(lambda: fb_im(*a[2:]), 1, 5) * 1e3,
+        s2c=device_time(lambda: fc(*wre, *wim), 1, 5) * 1e3,
         # the eager calls are warm (every plan and constant made) and take
         # seconds each: fewer of them
-        ckks_bootstrap_eager_ms_per_refresh=device_time(lambda: booter(ct), 0, 2) * 1e3,
-        bootstrap_c2s_eager_ms=device_time(
-            lambda: booter.coeff_to_slot(bs.mod_raise(ctx, ct)), 0, 1) * 1e3,
-        bootstrap_evalmod_re_eager_ms=device_time(lambda: booter.eval_mod(z_re), 0, 1) * 1e3,
-        bootstrap_evalmod_im_eager_ms=device_time(lambda: booter.eval_mod(z_im), 0, 1) * 1e3,
-        bootstrap_s2c_eager_ms=device_time(lambda: booter.slot_to_coeff(w_re, w_im), 0, 1) * 1e3,
-        ckks_bootstrap_eager_ms_per_ct_batch8=device_time(lambda: booter(ct8), 0, 1) * 1e3
-        / BOOT_BATCH,
-        ckks_bootstrap_eager_host_ms_per_refresh=step_time(lambda: booter(ct), 0, 1) * 1e3,
-        bootstrap_max_abs_err=err, bootstrap_max_abs_err_batch8=err8,
+        c2s_eager=device_time(lambda: booter.coeff_to_slot(bs.mod_raise(ctx, ct)), 0, 1) * 1e3,
+        evalmod_re_eager=device_time(lambda: booter.eval_mod(z_re), 0, 1) * 1e3,
+        evalmod_im_eager=device_time(lambda: booter.eval_mod(z_im), 0, 1) * 1e3,
+        s2c_eager=device_time(lambda: booter.slot_to_coeff(w_re, w_im), 0, 1) * 1e3,
     )
-    print(f"[bootstrap] times (CUDA events; captured: CUDA graphs, *_eager: the eager "
+    refresh_ms = device_time(lambda: refresh(ct), 1, 5) * 1e3
+    eager_ms = device_time(lambda: booter(ct), 0, 2) * 1e3
+    eager_host_ms = step_time(lambda: booter(ct), 0, 1) * 1e3
+    batch8_ms = device_time(lambda: refresh8(ct8), 1, 3) * 1e3 / BOOT_BATCH
+    if flagship:
+        metrics = {f"ckks_bootstrap_{n}_ms": refresh_ms, f"ckks_bootstrap_{n}_max_err": err,
+                   f"ckks_bootstrap_{n}_max_err_batch8": err8,
+                   f"ckks_bootstrap_{n}_eager_ms": eager_ms,
+                   f"ckks_bootstrap_{n}_eager_host_ms": eager_host_ms,
+                   **{f"bootstrap_{n}_{k}_ms": t for k, t in stage_ms.items()},
+                   f"ckks_bootstrap_{n}_ms_per_ct_batch8": batch8_ms}
+    else:
+        metrics = dict(
+            ckks_bootstrap_ms_per_refresh=refresh_ms,
+            **{f"bootstrap_{k}_ms": t for k, t in stage_ms.items() if "eager" not in k},
+            ckks_bootstrap_ms_per_ct_batch8=batch8_ms,
+            ckks_bootstrap_eager_ms_per_refresh=eager_ms,
+            **{f"bootstrap_{k.removesuffix('_eager')}_eager_ms": t
+               for k, t in stage_ms.items() if "eager" in k},
+            ckks_bootstrap_eager_ms_per_ct_batch8=device_time(lambda: booter(ct8), 0, 1) * 1e3
+            / BOOT_BATCH,
+            ckks_bootstrap_eager_host_ms_per_refresh=eager_host_ms,
+            bootstrap_max_abs_err=err, bootstrap_max_abs_err_batch8=err8,
+        )
+    print(f"[{tag}] times (CUDA events; captured: CUDA graphs, *_eager: the eager "
           f"Bootstrapper; *_host: host clock), {card_line()}: {json.dumps(metrics)}")
     seconds["times"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for tag, fn in (("eager", lambda: booter(ct)), ("captured", lambda: refresh(ct))):
+    for what, fn in (("eager", lambda: booter(ct)), ("captured", lambda: refresh(ct))):
         trace = device_trace(fn)
-        print(f"[bootstrap] torch.profiler trace of one {tag} batch-1 refresh: {json.dumps(trace)}")
+        print(f"[{tag}] torch.profiler trace of one {what} batch-1 refresh: {json.dumps(trace)}")
     # a replay passes no wrapper: its kernels show only in the trace
     for name in ("ntt_fwd_kernel", "ntt_inv_kernel", "ext_prod_kernel"):
         check(trace["busy_ms"] is None or trace["launches"].get(name, 0) > 0,
-              f"bootstrap: the captured refresh's trace holds no {name}")
+              f"{tag}: the captured refresh's trace holds no {name}")
     seconds["traces"] = time.perf_counter() - t0
-    print(f"[bootstrap] seconds of the phase (host clock): {json.dumps(seconds)}")
+    if flagship:
+        print(f"[{tag}] host seconds of the set-up (host clock), {card_line()}: "
+              f"{json.dumps(host)}")
+    print(f"[{tag}] seconds of the phase (host clock): {json.dumps(seconds)}")
+    # the host matrices of the factored transforms (10 GB at n=16384) and
+    # the stage matrices go with the phase
+    for cache in (bs._merged_chain_matrices, bs._butterfly_factors, bs._butterfly_roots):
+        cache.cache_clear()
     return launches, records
+
 
 def large_ntt_record(kind, ctx, dev, shape, gen):
     """K1 or K2 (`kind`) on lazy residues of `shape` [rows, L, n], n above
@@ -2351,6 +2461,39 @@ def parallel_path(dev):
     return launches, staged_launches, records
 
 
+def examples_path(dev):
+    """Phase 14: the JAX package's three demos as the port's twins
+    (hehub_tpu_torch.examples) on the card, as `python -m` runs them: the
+    CKKS Basel series over EXAMPLE_TERMS terms, BGV (a + b)·c mod t, and
+    the TFHE NAND truth table at PRESET_GATE_128 (`secure`). Each main()
+    raises unless its own check passes. Prints each one's wall seconds
+    (keys included) and its K1/K2/K3/K5 launches; returns the launch counts
+    of the phase."""
+    runs = (("ckks", lambda: ckks_example.main(EXAMPLE_TERMS, device=str(dev)),
+             ("ntt_fwd", "ntt_inv", "ext_prod", "fft")),
+            ("bgv", lambda: bgv_example.main(device=str(dev)), ("ntt_fwd", "ntt_inv", "ext_prod")),
+            ("tfhe", lambda: tfhe_example.main(secure=True, device=str(dev)),
+             ("ntt_fwd", "ntt_inv")))
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    for name, run, kinds in runs:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        for kind in kinds:
+            check(launches[kind] > 0, f"kernel {kind} was not launched by the {name} example")
+        for kind, count in launches.items():
+            total[kind] += count
+        result = result.tolist() if isinstance(result, np.ndarray) else result
+        print(f"[examples] {name}_example.main(): its check passed ({result}); {wall:.3f} s "
+              f"wall (host clock, keygen included), {card_line()}; launches "
+              f"{json.dumps({k: launches[k] for k in ('ntt_fwd', 'ntt_inv', 'ext_prod', 'fft')})}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2365,6 +2508,10 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     print(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(kernels.SOURCES.values())}")
+    t0 = time.perf_counter()
+    host_lib = native_loader.build()
+    print(f"[build] {time.perf_counter() - t0:.1f} s for the host runtime (g++ "
+          f"{' '.join(native_loader.GXX_FLAGS)}): {host_lib.parent.name}/{host_lib.name}")
     for line in kernels.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             print(f"[build] {line.strip()}")
@@ -2394,14 +2541,18 @@ def main() -> int:
     bgv_timings()
     del circuit_timings, bgv_timings
     torch.cuda.empty_cache()
-    boot_launches, boot_records = bootstrap_path(dev)
+    boot_launches, boot_records = bootstrap_path(dev, BOOT_N)
     torch.cuda.empty_cache()
     large_launches, large_records = large_ring_path(dev)
     torch.cuda.empty_cache()
     par_launches, staged_launches, par_records = parallel_path(dev)
     torch.cuda.empty_cache()
+    boot16_launches, boot16_records = bootstrap_path(dev, BOOT16_N, flagship=True)
+    torch.cuda.empty_cache()
+    example_launches = examples_path(dev)
+    torch.cuda.empty_cache()
     by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches,
-               "bgv": bgv_launches, "parallel": par_launches}
+               "bgv": bgv_launches, "parallel": par_launches, "examples": example_launches}
     for k, rec in records.items():
         rec["launches_by_path"] = {tag: counts[k] for tag, counts in by_path.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
@@ -2432,6 +2583,12 @@ def main() -> int:
         rec["launches_by_path"] = {"bootstrap": boot_launches[kind]}
         check(rec["launches"] > 0, f"kernel {name} was not launched on the bootstrap path")
     records.update(boot_records)
+    for name, rec in boot16_records.items():
+        kind = name.rsplit("_boot16", 1)[0]
+        rec["launches"] = boot16_launches[kind]
+        rec["launches_by_path"] = {"bootstrap16": boot16_launches[kind]}
+        check(rec["launches"] > 0, f"kernel {name} was not launched on the n={BOOT16_N} bootstrap")
+    records.update(boot16_records)
     for name, rec in large_records.items():
         kind = name.rsplit("_large", 1)[0]
         rec["launches"] = large_launches[kind]

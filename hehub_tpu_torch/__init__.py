@@ -20,3 +20,5 @@ Conventions:
 """
 
 __version__ = "0.1.0"
+
+from hehub_tpu_torch.core.context import CkksParams, BgvParams, Context, make_context  # noqa: F401

@@ -110,11 +110,26 @@ def _c2s_s2c_matrices(n: int):
 # slot-wise, and S2C's chain consumes that order.
 
 
+# Above this ring dimension the groups are multiplied out one butterfly at
+# a time as row combinations (two nonzeros a row: O(s^2) a stage) instead of
+# as dense products (O(s^3)), and D scales rows and columns by broadcasting
+# instead of through np.diag products: at n=16384 the dense route takes
+# minutes of host time and 13 GB of stage matrices. The two routes agree to
+# rounding (BLAS sums in an order of its own), not bitwise, so the rings
+# that the tests hold against hehub_tpu bitwise, n=4096 and below, keep the
+# dense route.
+SPARSE_CHAIN_MIN_N = 8192
+
+
 @functools.lru_cache(maxsize=None)
-def _butterfly_factors(n: int):
-    """(Ms, rev, e): stage matrices with V = Ms[d−1] @ … @ Ms[0] @ P_br,
-    the bit-reversal permutation rev (an involution), and the Galois
-    exponents e_i = 3^i mod 2n."""
+def _butterfly_roots(n: int):
+    """(roots, rev, e): roots[t−1] [s] holds the twiddles of stage M_t, which
+    has half-width h = 2^(t−1) and, in each block of 2h rows at `base`,
+    M_t[base+i, base+i] = M_t[base+h+i, base+i] = 1,
+    M_t[base+i, base+h+i] = roots[t−1][base+i] and
+    M_t[base+h+i, base+h+i] = roots[t−1][base+h+i] (i < h); rev is the
+    bit-reversal permutation (an involution) and e the Galois exponents
+    e_i = 3^i mod 2n."""
     s = n // 2
     d = s.bit_length() - 1
     e = np.empty(s, dtype=np.int64)
@@ -124,44 +139,78 @@ def _butterfly_factors(n: int):
         x = x * 3 % (2 * n)
     zeta = np.exp(1j * np.pi / n)
     cur_roots = [zeta**e]
-    stages = []
+    roots = []
     for t in range(d, 0, -1):
-        b = 1 << t
-        M = np.zeros((s, s), dtype=np.complex128)
+        h = 1 << (t - 1)
+        roots.append(np.concatenate(cur_roots))
         new_roots = []
-        for blk, r in enumerate(cur_roots):
-            base = blk * b
-            h = b // 2
-            i = np.arange(h)
-            M[base + i, base + i] = 1.0
-            M[base + i, base + h + i] = r[:h]
-            M[base + h + i, base + i] = 1.0
-            M[base + h + i, base + h + i] = r[h:]
+        for r in cur_roots:
             sq = r[:h] ** 2
             new_roots += [sq, sq]
         cur_roots = new_roots
-        stages.append(M)
-    stages = stages[::-1]  # stages[0] = M_1, applied first after P_br
     rev = np.zeros(s, np.int64)
     idx = np.arange(s)
     for bit in range(d):
         rev |= ((idx >> bit) & 1) << (d - 1 - bit)
-    return tuple(stages), rev, e
+    return tuple(roots[::-1]), rev, e
 
 
 @functools.lru_cache(maxsize=None)
-def _merged_chain_matrices(n: int, lt_stages: int):
-    """The four factored chains as tuples of matrices in application order:
-    (c2s_r, c2s_im, s2c_r, s2c_im). Merges the d butterflies into
-    `lt_stages` near-equal groups G_1..G_k (V = G_k ⋯ G_1 P_br), then
-      c2s chains: (1/n)·G_1^H applied last, G_k^H (·D̄ for im) first;
-      s2c chains: G_1 applied first, G_k (D·G_k for im) last."""
-    Ms, rev, e = _butterfly_factors(n)
-    d = len(Ms)
+def _butterfly_factors(n: int):
+    """(Ms, rev, e): dense stage matrices with V = Ms[d−1] @ … @ Ms[0] @
+    P_br, the bit-reversal permutation rev (an involution), and the Galois
+    exponents e_i = 3^i mod 2n."""
+    roots, rev, e = _butterfly_roots(n)
+    s = n // 2
+    stages = []
+    for t, r in enumerate(roots, start=1):
+        h = 1 << (t - 1)
+        lo = (np.arange(s // (2 * h))[:, None] * 2 * h + np.arange(h)).ravel()
+        hi = lo + h
+        M = np.zeros((s, s), dtype=np.complex128)
+        M[lo, lo] = 1.0
+        M[lo, hi] = r[lo]
+        M[hi, lo] = 1.0
+        M[hi, hi] = r[hi]
+        stages.append(M)
+    return tuple(stages), rev, e
+
+
+def _stage_product(roots, first: int, stop: int) -> np.ndarray:
+    """M_stop ⋯ M_(first+1) as a dense matrix (stages first .. stop−1 of
+    `roots`, 0-based), built from the identity one stage at a time as row
+    combinations: (M_t X)[lo] = X[lo] + r[lo]·X[hi],
+    (M_t X)[hi] = X[lo] + r[hi]·X[hi]."""
+    s = roots[0].size
+    G = np.eye(s, dtype=np.complex128)
+    for t in range(first, stop):
+        h = 1 << t
+        X = G.reshape(s // (2 * h), 2, h, s)
+        r = roots[t].reshape(s // (2 * h), 2, h, 1)
+        out = np.empty_like(X)
+        for half in (0, 1):
+            np.multiply(r[:, half], X[:, 1], out=out[:, half])
+            out[:, half] += X[:, 0]
+        G = out.reshape(s, s)
+    return G
+
+
+def _chain_matrices(n: int, lt_stages: int, sparse: bool):
+    """_merged_chain_matrices through the sparse route (sparse=True) or the
+    dense one."""
+    if sparse:
+        roots, rev, e = _butterfly_roots(n)
+        d = len(roots)
+    else:
+        Ms, rev, e = _butterfly_factors(n)
+        d = len(Ms)
     k = min(lt_stages, d)
     bounds = [round(j * d / k) for j in range(k + 1)]
     groups = []
     for j in range(k):
+        if sparse:
+            groups.append(_stage_product(roots, bounds[j], bounds[j + 1]))
+            continue
         Gj = Ms[bounds[j]]
         for t in range(bounds[j] + 1, bounds[j + 1]):
             Gj = Ms[t] @ Gj
@@ -170,7 +219,8 @@ def _merged_chain_matrices(n: int, lt_stages: int):
     adj = [Gj.conj().T for Gj in groups]
     c2s_r = [adj[j] for j in range(k - 1, -1, -1)]
     c2s_im = list(c2s_r)
-    c2s_im[0] = adj[k - 1] @ np.diag(np.conj(D))
+    c2s_im[0] = (adj[k - 1] * np.conj(D)[None, :] if sparse
+                 else adj[k - 1] @ np.diag(np.conj(D)))
     # the 1/n normalization spread over the stages so that every folded
     # factor has the same rms gain κ = (Π gains / n)^(1/k): plan entries stay
     # O(κ/g_t) and the per-stage plan quantization error is balanced
@@ -181,8 +231,30 @@ def _merged_chain_matrices(n: int, lt_stages: int):
     c2s_im = [M * c for M, c in zip(c2s_im, folds)]
     s2c_r = list(groups)
     s2c_im = list(groups)
-    s2c_im[-1] = np.diag(D) @ s2c_im[-1]
+    s2c_im[-1] = D[:, None] * s2c_im[-1] if sparse else np.diag(D) @ s2c_im[-1]
     return (tuple(c2s_r), tuple(c2s_im), tuple(s2c_r), tuple(s2c_im))
+
+
+@functools.lru_cache(maxsize=None)
+def _merged_chain_matrices(n: int, lt_stages: int):
+    """The four factored chains as tuples of matrices in application order:
+    (c2s_r, c2s_im, s2c_r, s2c_im). Merges the d butterflies into
+    `lt_stages` near-equal groups G_1..G_k (V = G_k ⋯ G_1 P_br), then
+      c2s chains: (1/n)·G_1^H applied last, G_k^H (·D̄ for im) first;
+      s2c chains: G_1 applied first, G_k (D·G_k for im) last.
+    Built by the sparse route from n = SPARSE_CHAIN_MIN_N."""
+    return _chain_matrices(n, lt_stages, sparse=n >= SPARSE_CHAIN_MIN_N)
+
+
+def _nonzero_diagonals(M: np.ndarray) -> np.ndarray:
+    """The k (ascending) whose wrapped diagonal M[j, (j+k) mod s] holds a
+    nonzero entry: one pass over M's nonzeros in place of a gather per k
+    (in memory order: the C2S factors are transposes)."""
+    if M.flags.f_contiguous and not M.flags.c_contiguous:
+        j, i = np.nonzero(M.T)
+    else:
+        i, j = np.nonzero(M)
+    return np.unique((j - i) % M.shape[0])
 
 
 def _bsgs_split(s: int) -> Tuple[int, int]:
@@ -231,18 +303,12 @@ class LinearTransformPlan:
         idx = np.arange(s)
         keys: List[Tuple[int, int]] = []
         diags: List[np.ndarray] = []
-        for g in range(G):
-            for b in range(B):
-                k = g * B + b
-                if k >= s:
-                    break
-                # diag_k[j] = M[j, (j+k) mod s], pre-rotated by +gB so the
-                # final giant rotation lands it in place
-                diag = M[idx, (idx + k) % s]
-                if not np.any(diag):
-                    continue
-                keys.append((g, b))
-                diags.append(np.roll(diag, (g * B) % s))
+        for k in _nonzero_diagonals(M):
+            g, b = divmod(int(k), B)
+            # diag_k[j] = M[j, (j+k) mod s], pre-rotated by +gB so the
+            # final giant rotation lands it in place
+            keys.append((g, b))
+            diags.append(np.roll(M[idx, (idx + k) % s], (g * B) % s))
         self._keys = keys
         self._diags = np.stack(diags)
         self._level_tag = len(params.moduli) - level
@@ -433,19 +499,14 @@ def _matrix_bsgs_steps(M: np.ndarray) -> set:
     """Rotation steps a LinearTransformPlan of M will request (same
     nonzero-diagonal pruning and BSGS split)."""
     s = M.shape[0]
-    B, G = _bsgs_split(s)
-    idx = np.arange(s)
+    B, _ = _bsgs_split(s)
     steps = set()
     babies = set()
-    for g in range(G):
-        for b in range(B):
-            k = g * B + b
-            if k >= s:
-                break
-            if np.any(M[idx, (idx + k) % s]):
-                babies.add(b)
-                if g:
-                    steps.add((-g * B) % s)
+    for k in _nonzero_diagonals(M):
+        g, b = divmod(int(k), B)
+        babies.add(b)
+        if g:
+            steps.add((-g * B) % s)
     steps |= {(-b) % s for b in babies if b}
     return steps
 

@@ -307,8 +307,14 @@ def compose_to_int(coeffs: np.ndarray, moduli) -> list:
 
 
 def convert_to_single_host(coeffs: np.ndarray, moduli, new_modulus: int) -> np.ndarray:
-    """Host-exact k -> 1 base conversion with signed lift, in Python ints
-    (the JAX package's twin takes its C++ runtime where it is built, with
-    the same result)."""
+    """Host-exact k -> 1 base conversion with signed lift of strict
+    residues [L, n], in the host C++ runtime."""
+    from hehub_tpu_torch.native import loader
+
+    return loader.compose_mod(np.asarray(coeffs), list(moduli), new_modulus)
+
+
+def convert_to_single_host_plain(coeffs: np.ndarray, moduli, new_modulus: int) -> np.ndarray:
+    """The Python-int twin of convert_to_single_host."""
     ints = compose_to_int(coeffs, moduli)
     return np.asarray([x % new_modulus for x in ints], dtype=np.uint32)

@@ -308,10 +308,32 @@ def mult(ctx, ct1: BgvCt, ct2: BgvCt, rlk: rgsw_mod.RgswCt) -> BgvCt:
     return relinearize(ctx, mult_low_level(ctx, ct1, ct2), rlk)
 
 
-def mod_switch(ctx, ct: BgvCt, dropping_primes: int = 1) -> BgvCt:
+def mod_switch(ctx, ct: BgvCt, dropping_primes: int = 1,
+               restore_plain_scale: bool = True) -> BgvCt:
     """Drop trailing primes, dividing while keeping the value mod t
-    (several primes by iteration)."""
+    (several primes by iteration).
+
+    Each division leaves the plaintext times q_last^{-1} mod t, which the
+    reference's switch restores by multiplying the ciphertext by
+    (q_last mod t): that multiplies the noise by up to t as well, and on a
+    last limb of 30 bits it overflows (examples/bgv_example.py's chain:
+    2^22.6 becomes 2^38.1, above q_0/2). restore_plain_scale=False leaves
+    the factor on the plaintext instead, for the caller to multiply the
+    decrypted values by `plain_scale_dropped(ctx, ct, dropping_primes)`
+    mod t."""
     c0, c1, t = ct.c0, ct.c1, ct.plain_modulus
     for _ in range(dropping_primes):
-        c0, c1 = basecnv.div_last_rounded_pair(ctx, c0, c1, plain_modulus=t)
+        c0, c1 = basecnv.div_last_rounded_pair(ctx, c0, c1, plain_modulus=t,
+                                               restore_plain_scale=restore_plain_scale)
     return BgvCt(c0, c1, t)
+
+
+def plain_scale_dropped(ctx, ct: BgvCt, dropping_primes: int = 1) -> int:
+    """Π (q_last mod t) over the primes that mod_switch(ct, dropping_primes)
+    drops: the factor mod t that restore_plain_scale=False leaves for the
+    decrypted plaintext."""
+    t = ct.plain_modulus
+    scale = 1
+    for lid in ct.limb_ids[len(ct.limb_ids) - dropping_primes:]:
+        scale = scale * (ctx.mod_list[lid] % t) % t
+    return scale

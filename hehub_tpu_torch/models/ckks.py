@@ -35,6 +35,7 @@ from hehub_tpu_torch import config
 from hehub_tpu_torch.core import basecnv, galois, rns
 from hehub_tpu_torch.core.context import CkksParams, Context, make_context
 from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly
+from hehub_tpu_torch.native import loader
 from hehub_tpu_torch.ops import fft as fftmod
 from hehub_tpu_torch.ops import modarith as ma
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
@@ -149,7 +150,14 @@ def _slots_to_read(coeffs: np.ndarray, n: int, count: int) -> np.ndarray:
 
 def _digitize(coeffs: np.ndarray):
     """Exact base-2^22 digit split of integer-valued float64 coefficients
-    (rint and the int64 conversion are exact for |c| < 2^62)."""
+    (rint and the int64 conversion are exact for |c| < 2^62), in one pass
+    of the host C++ runtime: (digits uint32 [..., 3, n], neg uint32
+    [..., n])."""
+    return loader.digitize(np.ascontiguousarray(coeffs))
+
+
+def _digitize_plain(coeffs: np.ndarray):
+    """The numpy twin of _digitize."""
     x = np.rint(coeffs)
     if np.abs(x).max(initial=0.0) >= float(1 << 62):
         raise ValueError("encoded coefficients exceed 2^62; lower the scaling factor")
@@ -158,12 +166,29 @@ def _digitize(coeffs: np.ndarray):
 
 def _encode_host(data: np.ndarray, n: int, scale: float):
     """Host half of encode: slot FFT + twist + scale + digit split ->
-    (digits uint32 [..., 3, n], neg uint32 [..., n])."""
-    return _digitize(_coeffs_from_slots(data, n) * scale)
+    (digits uint32 [..., 3, n], neg uint32 [..., n]); everything around the
+    FFT is two passes of the host C++ runtime (gather and conjugation in;
+    twist, rint and split out)."""
+    invj, _, tw_enc, _ = _half_transform_tables(n)
+    u = _fft(loader.encode_pre(_pad_slots(data, n), invj), axis=-1)
+    return loader.encode_post(u, tw_enc, scale)
+
+
+def _encode_host_plain(data: np.ndarray, n: int, scale: float):
+    """The numpy twin of _encode_host."""
+    return _digitize_plain(_coeffs_from_slots(data, n) * scale)
 
 
 def _decode_host(coeffs: np.ndarray, n: int, scale: float, count: int):
-    """Host half of decode: 1/scale + twist + slot iFFT -> complex slots."""
+    """Host half of decode: 1/scale + twist + slot iFFT -> complex slots,
+    the passes around the iFFT in the host C++ runtime."""
+    _, j, _, tw_dec = _half_transform_tables(n)
+    vals = _ifft(loader.decode_pre(coeffs, tw_dec, scale), axis=-1)
+    return loader.decode_post(vals, j, count)
+
+
+def _decode_host_plain(coeffs: np.ndarray, n: int, scale: float, count: int):
+    """The numpy twin of _decode_host."""
     return _slots_to_read(coeffs / scale, n, count)
 
 
@@ -318,8 +343,15 @@ def decode_limb_count(scale: float, limbs: Tuple[int, ...], moduli,
 
 def _mixed_radix_to_float(digits: np.ndarray, mods, split_top: bool = False):
     """Centered float64 value of Garner digits [..., K, n] via a balanced-
-    digit carry pass. split_top=True: the last digit row is an overflow
-    sentinel, returned as (value, balanced top digits)."""
+    digit carry pass, in one pass of the host C++ runtime. split_top=True:
+    the last digit row is an overflow sentinel, returned as (value,
+    balanced top digits), the digits None when they are all zero."""
+    return loader.mixed_radix(digits, mods, split_top)
+
+
+def _mixed_radix_to_float_plain(digits: np.ndarray, mods, split_top: bool = False):
+    """The numpy twin of _mixed_radix_to_float (its top digits are an
+    array, zero or not)."""
     K = digits.shape[-2]
     d = digits.astype(np.int64)
     carry = np.zeros(d.shape[:-2] + d.shape[-1:], np.int64)

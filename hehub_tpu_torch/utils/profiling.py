@@ -1,22 +1,35 @@
-"""Timing on the card (port of the timing part of
+"""Timing on the card and roofline accounting (port of
 hehub_tpu/utils/profiling.py).
 
 `device_time` is the device time per call between CUDA events, after
 warm-up: host work that outlasts the kernels shows in it. `kernel_time` is
 the time per call inside kernels, from a torch.profiler trace: this
-package's kernels, or a library call's. `step_time` is the host clock
-around calls that end in `torch.cuda.synchronize()`, for work whose host
-part counts too (the host codec). `device_trace` traces one call with torch.profiler and reports how
-long the device was busy in it and with what. All refuse to run without a
-CUDA device: there is no CPU number under a device metric's name.
+package's kernels, or a library call's. `step_time` (and the reference's
+`time_op`, the same over `fn(*args)`) is the host clock around calls that
+end in `torch.cuda.synchronize()`, for work whose host part counts too (the
+host codec). `device_trace` traces one call with torch.profiler and reports
+how long the device was busy in it and with what; `trace` writes a
+torch.profiler trace of a block as a Chrome trace; `op_counters` reads the
+caching allocator's statistics. All of these refuse to run without a CUDA
+device: there is no CPU number under a device metric's name.
+
+`Roofline`, `ntt_roofline` and `modmul_roofline` turn a time into achieved
+bytes/s and integer operations/s with the reference's counts, so that their
+reports read as the reference's do: 18 lane operations a butterfly, 20 a
+Montgomery product, 4-byte residues. The kernel table of PERF.md counts the
+kernels' own uint32 operations instead (chip_smoke.py's FWD_BUTTERFLY_OPS
+and the like).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import dataclasses
+import os
 import time
 from types import SimpleNamespace
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -53,6 +66,95 @@ def step_time(fn: Callable[[], object], warmup: int = 1, iters: int = 4) -> floa
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters
+
+
+def time_op(fn: Callable, args: tuple, warmup: int = 2, iters: int = 10) -> float:
+    """Steady-state host seconds per call of `fn(*args)`, each run of calls
+    ending in a device sync."""
+    return step_time(lambda: fn(*args), warmup, iters)
+
+
+@dataclasses.dataclass
+class Roofline:
+    seconds: float
+    bytes_moved: int  # minimum memory traffic of the op
+    int_ops: int  # 32-bit integer lane operations
+
+    @property
+    def gbytes_per_s(self) -> float:
+        return self.bytes_moved / self.seconds / 1e9
+
+    @property
+    def gops_per_s(self) -> float:
+        return self.int_ops / self.seconds / 1e9
+
+    @property
+    def arithmetic_intensity(self) -> float:
+        return self.int_ops / self.bytes_moved
+
+    def report(self, name: str, hbm_gbps: Optional[float] = None) -> str:
+        s = (
+            f"{name}: {self.seconds*1e6:.1f} us | {self.gbytes_per_s:.1f} GB/s"
+            f" | {self.gops_per_s:.1f} Gint-op/s | AI={self.arithmetic_intensity:.1f}"
+        )
+        if hbm_gbps:
+            s += f" | {100*self.gbytes_per_s/hbm_gbps:.0f}% of {hbm_gbps:.0f} GB/s HBM"
+        return s
+
+
+# the reference's counts: a Shoup mulmod is 4 half-word products and about 8
+# adds and shifts, a butterfly adds 2 lazy add/sub chains; a Montgomery
+# product is 2 wide products and the reduction
+_OPS_PER_BUTTERFLY = 18
+_OPS_PER_MULMOD = 20
+
+
+def ntt_roofline(seconds: float, n: int, transforms: int) -> Roofline:
+    """Fused-kernel NTT: one read and one write of each 4-byte residue per
+    transform (twiddles amortized over the rows)."""
+    logn = n.bit_length() - 1
+    return Roofline(
+        seconds=seconds,
+        bytes_moved=transforms * 2 * 4 * n,
+        int_ops=transforms * logn * (n // 2) * _OPS_PER_BUTTERFLY,
+    )
+
+
+def modmul_roofline(seconds: float, n_elements: int) -> Roofline:
+    """Elementwise dynamic*dynamic mulmod: 2 reads and 1 write of 4 bytes
+    per element."""
+    return Roofline(
+        seconds=seconds,
+        bytes_moved=n_elements * 3 * 4,
+        int_ops=n_elements * _OPS_PER_MULMOD,
+    )
+
+
+@contextlib.contextmanager
+def trace(logdir: str) -> Iterator[str]:
+    """Trace the block's host and device activities with torch.profiler and
+    write them as one Chrome trace under `logdir` (created if missing);
+    yields the path of that file, written when the block ends (after a
+    device sync)."""
+    _require_cuda()
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        try:
+            yield path
+        finally:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+
+
+def op_counters() -> Dict[str, float]:
+    """The caching allocator's statistics of the current CUDA device
+    (`torch.cuda.memory_stats()`: bytes and counts, e.g.
+    "allocated_bytes.all.peak")."""
+    _require_cuda()
+    return dict(torch.cuda.memory_stats())
 
 
 _OURS = "(anonymous namespace)::"

@@ -58,7 +58,8 @@ def test_device_rows_cached_and_typed():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, hehub_tpu_torch.models.ckks, hehub_tpu_torch.kernels, "
+        "import sys; from hehub_tpu_torch import make_context; "
+        "import hehub_tpu_torch.models.ckks, hehub_tpu_torch.kernels, "
         "hehub_tpu_torch.convert, hehub_tpu_torch.rlwe.keys, hehub_tpu_torch.config, "
         "hehub_tpu_torch.ops.fft, hehub_tpu_torch.core.basecnv, "
         "hehub_tpu_torch.utils.profiling, hehub_tpu_torch.parallel.mesh, "
