@@ -4,8 +4,8 @@ kernels, holds each against its plain PyTorch version at the shapes of the
 paths that run it, then drives the CKKS main path, the hybrid
 key-switching path, the small-ring path, the circuits path, BGV, the
 bootstrapped TFHE NAND, the CKKS bootstrap, the large ring, the
-multi-rank paths (parallel/*), the bootstrap at n=16384 and the examples
-end to end and checks their results.
+multi-rank paths (parallel/*), the bootstrap at n=16384, the examples and
+CKKS at n=262144 end to end and checks their results.
 
     python3 chip_smoke.py
 
@@ -154,7 +154,28 @@ Phases, each printing its own lines:
      series over 10000 terms, BGV (a + b)·c mod t exact, the TFHE NAND
      truth table at PRESET_GATE_128, each its own check, with wall seconds
      and K1/K2/K3/K5 launches;
-  15. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
+  15. CKKS at n=262144, above one launch of K3/K4 (rows of 131072) and of
+     K5 (m = 65536): phase 11's chain (40+4 limbs of 30 bits), batch 8,
+     keys on the card (alpha=4 relin and rotation keys, an alpha=1 relin
+     key): encode + encrypt (device codec: K5 on parts of 65536, then the
+     FFT stage kernel F), mult + relin + rescale at alpha=4, rotate(1) at
+     alpha=4, mult + relin + rescale at alpha=1 (each key switch: the
+     digits in device memory, the stage kernel on them in place, then K4 on
+     parts of 131072 as virtual limbs; K3's own kernel not launched),
+     decrypt + decode, against a*b (<= 2^-6: phase 11's 2^-8 times the
+     ring's ratio, the rescale's rounding noise growing as n) and its roll
+     (<= 2^-5); the stage kernel, K1, K2, K4, K5 and F must have launched,
+     K3's own kernel not; the alpha=4 mult's key switch (rgsw.ext_prod on
+     its tensor product) replayed on the CPU for one row, bitwise (the whole
+     mult row took over 120 s of host time); CUDA-event times per
+     ciphertext, peak device memory, traces of the key-switching steps;
+     then `ext_prod_staged` (R=8, l=40, L_ext=44, the path's alpha=1 key),
+     `ext_prod_conv_staged` (R=8, D=10, L_ext=44), `fft_staged` on
+     [8, 131072] beside torch.fft.fft and `fft_stage` (F alone, the last
+     stage of those rows), each bitwise its plain version and timed as in
+     phase 3, and each again at the top ring n = 2^23 (one prime there:
+     alpha=1 at R=1, l=2, so K4 at D=2, L_ext=3; the FFT on [1, 2^22]);
+  16. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
      `launch_weighted_kernel_ms`; then the five small-ring records
      `*_small_n` / `fft_small_m`, whose launches are the small-ring
@@ -166,7 +187,9 @@ Phases, each printing its own lines:
      `ntt_stage`, the stage kernel, whose launches are phase 12's, and
      `ntt_fwd_staged` / `ntt_inv_staged`, K1 / K2 at n=262144; the
      `*_boot16` records, whose launches are phase 13's; phase 14's launches
-     join K1-K5's `launches_by_path` as "examples"); the card line; last,
+     join K1-K5's `launches_by_path` as "examples"; then phase 15's
+     `ext_prod_staged`, `ext_prod_conv_staged`, `fft_staged` and
+     `fft_stage`, whose launches are that phase's); the card line; last,
      the result line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -196,7 +219,7 @@ from hehub_tpu_torch.circuits import linear_algebra as la
 from hehub_tpu_torch.circuits import poly_eval as pe
 from hehub_tpu_torch.core.context import (RlweParams, create_bgv_params, create_ckks_params,
                                           make_context)
-from hehub_tpu_torch.core.rns import RnsPoly
+from hehub_tpu_torch.core.rns import COEFF, RnsPoly
 from hehub_tpu_torch.models import bgv, ckks, tfhe
 from hehub_tpu_torch.examples import bgv_example, ckks_example, tfhe_example
 from hehub_tpu_torch.native import loader as native_loader
@@ -335,6 +358,28 @@ PIPE_SCALE = 2.0**30
 # rings above the longest kernel row: K1/K2 at n = 262144 on [rows, L]
 STAGED_N = 262144
 STAGED_SHAPE = (2, 4)
+# Phase 15, CKKS at n = STAGED_N, above one launch of K3/K4 (rows of
+# 131072) and of K5 (m = 65536): phase 11's chain (40 + 4 limbs of 30 bits,
+# 1318 bits of log QP) at 4x its ring, batch 8, keys made on the card
+# (alpha=4 relin and rotation keys, an alpha=1 relin key); the rotate's
+# bound is phase 11's. The depth is cut from what a 2^18 deployment would
+# use (about 7000 bits at 128-bit security), so that the alpha=1 key (6.9 GB
+# as int64) and a chunk of its digits fit on the card together. The alpha=4
+# mult's key switch replayed on the CPU for one row. The routes by parts
+# also held and timed at the top ring kernels.MAX_N, which has one NTT
+# prime: every limb is that prime there (the external product at alpha=1
+# on R x l rows, K4's D = l, L_ext = l + 1; the FFT on rows of MAX_N / 2).
+STAGED_BATCH = 8
+STAGED_REPLAY_ROWS = 1
+# the mults' bound: phase 11's 2^-8 at n=65536 times the ring's ratio. The
+# rescale's rounding noise r·s (r uniform in [-1/2, 1/2] on each of n
+# coefficients, s ternary) reaches a slot as a sum over n coefficients, so
+# its size grows as n: phase 11 measured 2^-9.4 at 65536, and the same
+# algorithm (hehub_tpu's, which the CPU replay below matches bit for bit)
+# carries about 4x that here. The rotate keeps phase 11's 2^-5.
+MAX_ERR_STAGED_MULT = MAX_ERR_MULT * STAGED_N / LARGE_N
+TOP_EXT = (1, 2)  # R, l
+TOP_FFT_ROWS = 1
 
 # Peak rates of an H100 SXM at its 700 W limit, for the bound of each kernel:
 HBM_BYTES_PER_S = 3.35e12  # data sheet
@@ -366,6 +411,9 @@ ORIGIN = {
     # the port's own kernel: the jnp stage after each ppermute of the
     # reference's sharded NTT, not a Pallas kernel
     "ntt_stage": ("hehub_tpu_torch/csrc/ntt.cu", "hehub_tpu/parallel/ntt_sharded.py:135"),
+    # the port's own kernel: one stage of the FFT's later stages, which the
+    # reference runs as df64.fft_xla's XLA chain, not a Pallas kernel
+    "fft_stage": ("hehub_tpu_torch/csrc/fft.cu", "hehub_tpu/ops/df64.py:260"),
 }
 
 
@@ -2494,6 +2542,297 @@ def examples_path(dev):
     return total
 
 
+def _snapshot():
+    return dict(kernels.LAUNCHES)
+
+
+def _since(before):
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items()}
+
+
+def staged_ext_records(ctx, dev, rlk1, rlk4, gen):
+    """The external product by parts at phase 15's shapes: `ext_prod_staged`
+    (alpha=1, strict digits [8, 40, n] with the path's relin key through
+    rgsw.ext_prod_strict: the stage kernel and K4 on parts) and
+    `ext_prod_conv_staged` (lazy converted digits [8, 10, 44, n] with the
+    alpha=4 key through rgsw.ext_prod_digits), each bitwise its plain twin
+    (on the card, a row at a time), timed as in phase 3; then both at the
+    top ring kernels.MAX_N (one prime: l = 2 strict limbs at alpha=1, and
+    converted digits D = 2, L_ext = 3) under `n8388608`."""
+    n, ids_ext = STAGED_N, rlk1.limb_ids
+    L, L_ext = LARGE_LEVELS, len(ids_ext)
+    D = -(-L // LARGE_ALPHA)
+    strict = torch.stack([torch.randint(0, m, (STAGED_BATCH, n), generator=gen, device=dev)
+                          for m in ctx.moduli_of(tuple(range(L)))], dim=1)
+    conv = lazy_residues(gen, (STAGED_BATCH, D, L_ext, n), ctx.device_rows("two_q", ids_ext, dev))
+
+    def strict_record(c, d, key):
+        R, l, n_ = d.data.shape
+        L_e = len(key.limb_ids)
+        call = lambda: rgsw_mod.ext_prod_strict(c, d, key)  # noqa: E731
+        got = call()
+        plain = lambda r: rgsw_mod.ext_prod_parts(  # noqa: E731
+            c, RnsPoly(d.data[r:r + 1], COEFF, d.limb_ids), key, kernels.MAX_ROW_N, False)
+        err = 0
+        for r in range(R):
+            want = plain(r)
+            err = max(err, int((got.c0.data[r:r + 1] - want.c0.data).abs().max()),
+                      int((got.c1.data[r:r + 1] - want.c1.data).abs().max()))
+        del got, want
+        return dict(shape=f"R={R}, l={l}, L_ext={L_e}, n={n_}", max_abs_err=err, **timed(call),
+                    plain_ms=device_time(lambda: [plain(r) for r in range(R)], 0, 1) * 1e3,
+                    library_ms=None,
+                    **bound(4 * (R * l * n_ + l * 2 * L_e * n_ + 2 * R * L_e * n_),
+                            ntt_ops(R * l * L_e, n_) + R * l * L_e * n_ * 2 * CONTRACT_OPS,
+                            INT32_PER_S))
+
+    def conv_record(c, ids_e, digits, key):
+        R, D_, L_e, n_ = digits.shape
+        route = rgsw_mod.parts_route(c, ids_e, n_, kernels.MAX_ROW_N, dev, True)
+        plain_route = rgsw_mod.parts_route(c, ids_e, n_, kernels.MAX_ROW_N, dev, False)
+        key32 = nttmod.to_u32_bits(key[:D_])
+        d32 = nttmod.to_u32_bits(digits)
+        got = nttmod.from_u32_bits(rgsw_mod.ext_prod_digits(d32.clone(), key32, route, True))
+        plain = lambda r: rgsw_mod.ext_prod_digits(  # noqa: E731
+            digits[r:r + 1], key[:D_], plain_route, False)
+        err = max(int((got[:, r:r + 1] - plain(r)).abs().max()) for r in range(R))
+        del got
+        # the cross stages run in place: the timed calls take the previous
+        # call's digits, lazy residues as well
+        return dict(shape=f"R={R}, D={D_}, L_ext={L_e}, n={n_}", max_abs_err=err,
+                    **timed(lambda: rgsw_mod.ext_prod_digits(d32, key32, route, True)),
+                    plain_ms=device_time(lambda: [plain(r) for r in range(R)], 0, 1) * 1e3,
+                    library_ms=None,
+                    **bound(4 * (digits.numel() + D_ * 2 * L_e * n_ + 2 * R * L_e * n_),
+                            ntt_ops(R * D_ * L_e, n_) + R * D_ * L_e * n_ * 2 * CONTRACT_OPS,
+                            INT32_PER_S))
+
+    at_path = dict(
+        ext_prod=strict_record(ctx, RnsPoly(strict, COEFF, tuple(range(L))), rlk1),
+        ext_prod_conv=conv_record(ctx, ids_ext, conv, rlk4.data))
+    del strict, conv
+    torch.cuda.empty_cache()
+
+    top_n = kernels.MAX_N
+    R, l = TOP_EXT
+    q = hm.gen_ntt_primes(30, 1, top_n)[0]
+    top = make_context(RlweParams(dimension=top_n, moduli=(q,)))
+    ids_top = (0,) * (l + 1)
+    key = rgsw_mod.RgswCt(torch.randint(0, 2 * q, (l, 2, l + 1, top_n), generator=gen,
+                                        device=dev), ids_top)
+    d = RnsPoly(torch.randint(0, q, (R, l, top_n), generator=gen, device=dev), COEFF, (0,) * l)
+    conv = torch.randint(0, 2 * q, (R, l, l + 1, top_n), generator=gen, device=dev)
+    at_top = dict(ext_prod=strict_record(top, d, key),
+                  ext_prod_conv=conv_record(top, ids_top, conv, key.data))
+    records = {}
+    for kind, rec in at_path.items():
+        t = at_top[kind]
+        check(t["max_abs_err"] == 0, f"{kind} by parts at n={top_n} differs from its plain twin")
+        t["kernel_over_bound"] = ratio(t["kernel_ms"], t["bound_ms"])
+        records[f"{kind}_staged"] = dict(
+            **origin(kind), match="bitwise vs plain (the stage kernel, then K4 on parts)", **rec,
+            **{f"n{top_n}": t})
+        print(f"[staged] {kind} by parts at n={top_n}, {t['shape']}: bitwise vs plain, "
+              f"kernel-only {t['kernel_ms']} ms, call {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}, "
+              f"kernel-only / bound {t['kernel_over_bound']}")
+    return records
+
+
+def staged_fft_records(dev, gen):
+    """`fft_staged`: ops.fft.fft on [STAGED_BATCH, STAGED_N / 2] (K5 on parts
+    of 65536, then F), bitwise fft_plain, timed as in phase 3 beside
+    torch.fft.fft; `fft_stage`: F alone in place, the last stage (span m/2)
+    of those rows, bitwise fft_stage_plain; each also on [1, MAX_N / 2]
+    under `m4194304`."""
+    def fft_record(rows, m):
+        re, im = (torch.rand((rows, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+                  for _ in range(2))
+        got, want = fftmod.fft(re, im, m), fftmod.fft_plain(re, im, m)
+        natural = torch.complex(re, im)
+        tw = fftmod._device_tables(m, str(dev))
+        return dict(shape=f"[{rows}, {m}]",
+                    max_abs_err=max(float((got[0] - want[0]).abs().max()),
+                                    float((got[1] - want[1]).abs().max())),
+                    **timed(lambda: fftmod.fft(re, im, m)),
+                    plain_ms=device_time(lambda: fftmod.fft_plain(re, im, m), 1, 3) * 1e3,
+                    library_ms=device_time(lambda: torch.fft.fft(natural)) * 1e3,
+                    **kernel_only(lambda: torch.fft.fft(natural), False, "library_kernel_ms"),
+                    **bound(4 * re.numel() * 8 + 2 * tw[0].numel() * 8,
+                            rows * (m // 2) * (m.bit_length() - 1) * FFT_BUTTERFLY_FLOPS,
+                            FP64_PER_S))
+
+    def stage_record(rows, m):
+        t = m // 2
+        re, im = (torch.rand((rows, m), generator=gen, device=dev, dtype=torch.float64) * 2 - 1
+                  for _ in range(2))
+        tw = fftmod._device_tables(m, str(dev))
+        want = fftmod.fft_stage_plain(re, im, t, *tw)
+        got_re, got_im = re.clone(), im.clone()
+        kernels.fft_stage(got_re, got_im, *tw, t)
+        # in place: the timed calls take the previous call's output
+        return dict(shape=f"[{rows}, {m}], span {t}, in place",
+                    max_abs_err=max(float((got_re - want[0]).abs().max()),
+                                    float((got_im - want[1]).abs().max())),
+                    **timed(lambda: kernels.fft_stage(got_re, got_im, *tw, t)),
+                    plain_ms=device_time(lambda: fftmod.fft_stage_plain(re, im, t, *tw),
+                                         1, 3) * 1e3,
+                    library_ms=None,
+                    **bound(4 * re.numel() * 8 + 2 * t * 8, rows * (m // 2) * FFT_BUTTERFLY_FLOPS,
+                            FP64_PER_S))
+
+    top_m = kernels.MAX_N // 2
+    records = {}
+    for kind, make in (("fft", fft_record), ("fft_stage", stage_record)):
+        rec, t = make(STAGED_BATCH, STAGED_N // 2), make(TOP_FFT_ROWS, top_m)
+        check(t["max_abs_err"] == 0, f"{kind} at m={top_m} differs from its plain version")
+        t["kernel_over_bound"] = ratio(t["kernel_ms"], t["bound_ms"])
+        t["kernel_over_library"] = ratio(t["kernel_ms"], t.get("library_kernel_ms"))
+        name = "fft_staged" if kind == "fft" else "fft_stage"
+        records[name] = dict(**origin(kind), match="bitwise vs plain", **rec, **{f"m{top_m}": t})
+        print(f"[staged] {name} at m={top_m}, {t['shape']}: bitwise vs plain, kernel-only "
+              f"{t['kernel_ms']} ms, call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']}, library call {t['library_ms']} ms, "
+              f"library kernel-only {t.get('library_kernel_ms')} ms")
+    return records
+
+
+def staged_ring_path(dev):
+    """Phase 15: CKKS at n = STAGED_N, 40+4 limbs of 30 bits, batch 8, keys
+    made on the card (alpha=4 relin and rotation keys, an alpha=1 relin
+    key): encode + encrypt (the device codec: K5 on parts of 65536, then F),
+    mult + relin + rescale at alpha=4, rotate(1) at alpha=4, mult + relin +
+    rescale at alpha=1 (the key switches: the stage kernel, then K4 on
+    parts), decrypt + decode, between a reset and a read of the launch
+    counts; a CPU replay of one row of the alpha=4 mult's key switch;
+    CUDA-event times per ciphertext, peak device memory, traces of the
+    key-switching steps; the routes by parts' records. Returns the `*_staged` and `fft_stage`
+    records, their launches filled in from the driven run."""
+    t_phase = time.perf_counter()
+    params = create_ckks_params(STAGED_N, scaling_bits=28, num_levels=LARGE_LEVELS,
+                                num_special=LARGE_SPECIAL, use_security_budget=False)
+    ctx = make_context(params)
+    t_setup = time.perf_counter() - t_phase
+    rng = np.random.default_rng(151)
+    a, b = (rng.uniform(-1, 1, (STAGED_BATCH, STAGED_N // 2)) for _ in range(2))
+    gen = torch.Generator(device=dev).manual_seed(151)
+    print(f"[staged] n={STAGED_N} L={LARGE_LEVELS}+{LARGE_SPECIAL}, alpha={LARGE_ALPHA} and 1, "
+          f"batch {STAGED_BATCH}; context {t_setup:.3f} s (host clock)")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sk = rlwe_mod.keygen(ctx, gen)
+    rlk4 = keys_mod.relin_key(ctx, sk, gen, alpha=LARGE_ALPHA)
+    rk4 = keys_mod.rot_key(ctx, sk, 1, gen, alpha=LARGE_ALPHA)
+    rlk1 = keys_mod.relin_key(ctx, sk, gen)
+    torch.cuda.synchronize()
+    t_keys = time.perf_counter() - t0
+    encode_encrypt = lambda x: ckks.encrypt(ctx, ckks.encode(x, params, device=dev), sk, gen)  # noqa: E731
+    mult = lambda rlk: ckks.rescale(ctx, ckks.mult(ctx, ca, cb, rlk))  # noqa: E731
+    dec = lambda ct: ckks.decode(ckks.decrypt(ctx, ct, sk), params)  # noqa: E731
+    steps = {}
+    before = _snapshot()
+    ca, cb = encode_encrypt(a), encode_encrypt(b)
+    steps["encode_encrypt"], before = _since(before), _snapshot()
+    prod4 = mult(rlk4)
+    steps["mult_alpha4"], before = _since(before), _snapshot()
+    rot = ckks.rotate(ctx, prod4, rk4, 1)
+    steps["rotate_alpha4"], before = _since(before), _snapshot()
+    prod1 = mult(rlk1)
+    steps["mult_alpha1"], before = _since(before), _snapshot()
+    out4, out_rot, out1 = dec(prod4), dec(rot), dec(prod1)
+    steps["decrypt_decode"] = _since(before)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    ab = a * b
+    errs = dict(mult_alpha4=float(np.abs(out4 - ab).max()),
+                rotate_alpha4=float(np.abs(out_rot - np.roll(ab, 1, axis=-1)).max()),
+                mult_alpha1=float(np.abs(out1 - ab).max()))
+    for out in (out4, out_rot, out1):
+        check(out.shape == (STAGED_BATCH, STAGED_N // 2) and bool(np.isfinite(out).all()),
+              f"staged: decoded shape {out.shape} or values not finite")
+    check(max(errs["mult_alpha4"], errs["mult_alpha1"]) <= MAX_ERR_STAGED_MULT,
+          f"staged: mult decode errors {errs} above {MAX_ERR_STAGED_MULT}")
+    check(errs["rotate_alpha4"] <= MAX_ERR_LARGE_ROT,
+          f"staged: rotate decode error {errs['rotate_alpha4']} above {MAX_ERR_LARGE_ROT}")
+    for name in ("ntt_stage", "ntt_fwd", "ntt_inv", "ext_prod_conv", "fft", "fft_stage"):
+        check(launches[name] > 0, f"kernel {name} was not launched on the n={STAGED_N} path")
+    check(launches["ext_prod"] == 0, f"K3's own kernel was launched at n={STAGED_N}")
+    for step in ("mult_alpha4", "rotate_alpha4", "mult_alpha1"):
+        check(steps[step]["ext_prod_conv"] > 0 and steps[step]["ntt_stage"] > 0,
+              f"staged: {step} did not go through the stage kernel and K4")
+    key_gb = sum(k.data.numel() * 8 for k in (rlk4, rk4, rlk1)) / 1e9
+    print(f"[staged] keygen + keys {t_keys:.3f} s ({key_gb:.3f} GB as int64: alpha=4 "
+          f"{list(rlk4.data.shape)} x 2, alpha=1 {list(rlk1.data.shape)}); keygen..decode "
+          f"{wall:.3f} s (host clock); peak device memory {peak_gb:.3f} GB; max|err| "
+          f"{json.dumps(errs)} (log2 "
+          f"{json.dumps({k: round(float(np.log2(v)), 3) for k, v in errs.items()})}); launches "
+          f"{json.dumps(launches)}; by step {json.dumps(steps)}")
+    seconds = dict(context=t_setup, drive=wall)
+
+    t0 = time.perf_counter()
+    r = STAGED_REPLAY_ROWS
+    c2 = ckks.mult_low_level(ctx, ca, cb).c2
+    key = rlk4.at_level(c2.limb_count, ctx.num_special)
+    ks = rgsw_mod.ext_prod(ctx, c2, key)
+    ks_c = rgsw_mod.ext_prod(ctx, RnsPoly(c2.data[:r].cpu(), c2.form, c2.limb_ids),
+                             _key_on_cpu(key))
+    check(all(torch.equal(got.data, card.data[:r].cpu())
+              for got, card in ((ks_c.c0, ks.c0), (ks_c.c1, ks.c1))),
+          "staged: the card's alpha=4 key switch differs from the plain CPU path")
+    seconds["cpu_replay"] = time.perf_counter() - t0
+    print(f"[staged] plain CPU replay of the alpha=4 mult's ext_prod on {r} row(s) of the "
+          f"batch-{STAGED_BATCH} tensor product (the whole mult + rescale row took 121.9 s of "
+          f"host time on the H100 machine's CPU, over the phase's 120 s budget): bitwise "
+          f"equal, {seconds['cpu_replay']:.3f} s (host clock)")
+    del c2, ks, ks_c, key
+
+    t0 = time.perf_counter()
+    per_ct = lambda fn: device_time(fn, 1, 3) * 1e3 / STAGED_BATCH  # noqa: E731
+    metrics = dict(
+        staged_encode_encrypt_ms=per_ct(lambda: encode_encrypt(a)),
+        staged_mult_alpha4_ms_per_op=per_ct(lambda: mult(rlk4)),
+        staged_rotate_alpha4_ms_per_op=per_ct(lambda: ckks.rotate(ctx, prod4, rk4, 1)),
+        staged_mult_alpha1_ms_per_op=per_ct(lambda: mult(rlk1)),
+        staged_decrypt_decode_ms=per_ct(lambda: dec(prod4)),
+    )
+    print(f"[staged] times (CUDA events, per ciphertext of a batch-{STAGED_BATCH} call), "
+          f"{card_line()}: {json.dumps(metrics)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    print_traces("staged", {"mult+relin+rescale alpha=4": lambda: mult(rlk4),
+                            "rotate(1) alpha=4": lambda: ckks.rotate(ctx, prod4, rk4, 1),
+                            "mult+relin+rescale alpha=1": lambda: mult(rlk1)}, STAGED_BATCH)
+    seconds["times_and_traces"] = time.perf_counter() - t0
+    del ca, cb, prod1, prod4, rot, rk4, sk
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    kgen = torch.Generator(device=dev).manual_seed(152)
+    records = staged_ext_records(ctx, dev, rlk1, rlk4, kgen)
+    del rlk1, rlk4
+    torch.cuda.empty_cache()
+    records.update(staged_fft_records(dev, kgen))
+    seconds["kernels"] = time.perf_counter() - t0
+    by_record = dict(
+        ext_prod_staged=steps["mult_alpha1"]["ext_prod_conv"],
+        ext_prod_conv_staged=steps["mult_alpha4"]["ext_prod_conv"]
+        + steps["rotate_alpha4"]["ext_prod_conv"],
+        fft_staged=launches["fft"], fft_stage=launches["fft_stage"])
+    for name, count in by_record.items():
+        records[name]["launches"] = count
+        records[name]["launches_by_path"] = {"staged_ring": count}
+        check(count > 0, f"kernel {name} was not launched on the n={STAGED_N} path")
+    summarize(records)
+    seconds["phase"] = time.perf_counter() - t_phase
+    print(f"[staged] seconds of the phase (host clock): {json.dumps(seconds)}")
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2551,6 +2890,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     example_launches = examples_path(dev)
     torch.cuda.empty_cache()
+    staged_records_ = staged_ring_path(dev)
+    torch.cuda.empty_cache()
     by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches,
                "bgv": bgv_launches, "parallel": par_launches, "examples": example_launches}
     for k, rec in records.items():
@@ -2602,6 +2943,7 @@ def main() -> int:
         rec["launches_by_path"] = {"parallel": launches}
         check(launches > 0, f"kernel {name} was not launched on the parallel path")
     records.update(par_records)
+    records.update(staged_records_)
     lost = [k for k, rec in records.items() if rec["kernel_ms"] is None]
     check(2 * len(lost) <= len(records),
           f"the profiler gave no kernel-only time for {lost}: the instrument, not a dropped record")

@@ -55,6 +55,23 @@
 // fft_small_kernel instead, several rows a block in shared memory, no
 // cluster. The kernel is CUDA C++ rather than Triton: it needs clusters,
 // distributed shared memory and register-resident butterflies.
+//
+// F (hh_fft_stage, fft_stage_kernel): one DIT stage of span t on whole rows
+// in place, the port's own kernel (the TPU had none: the reference runs the
+// stages of df64.fft_xla, hehub_tpu/ops/df64.py:260, as XLA element-wise
+// chains). Rows of m above 65536 (the codec's m = n/2 up to n = 2^23) would
+// need a cluster of 16 or more blocks of 8192 values, past the portable
+// cluster size of 8; on a bit-reversed input the first 16 stages act within
+// aligned parts of 65536, so ops/fft.py runs K5 on the parts (under the
+// table of 65536, a prefix of the table of m) and then F once for each
+// later stage, t = 65536 .. m/2. Each thread takes two adjacent butterflies
+// (j, j + 1) of one block of 2t: x[lo] with x[lo + t] under e^{-i pi j / t},
+// its data as 16-byte loads in a grid-stride loop, coalesced, and the
+// butterfly is K5's own function below, so F's outputs are bitwise those of
+// the plain stage (ops/fft.py fft_stage_plain). What bounds it: each
+// stage reads and writes the rows once, 32 B a complex value, against 10
+// FP64 operations a butterfly, so the memory rate (at [8, 131072], one
+// stage: 33.6 MB in and out, 10 us at 3.35 TB/s).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -240,6 +257,37 @@ __global__ void __launch_bounds__(1 << (LOGM - cluster_log(LOGM) - kElemsLog))
   cluster.sync();  // the other blocks may still read this block's part
 }
 
+// F: items k < rows m / 4, each the butterflies (j, j + 1), j even, of one
+// block of 2t in the rows taken end to end (the blocks tile each row of m,
+// so the row does not matter): block 2k / t, j = 2k mod t, lo = 2t block +
+// j, in place on re/im; twiddles w_re/w_im[j] = tw[t - 1 + j].
+constexpr int kFftStageThreads = 256;
+
+__global__ void __launch_bounds__(kFftStageThreads)
+    fft_stage_kernel(double* __restrict__ re, double* __restrict__ im,
+                     const double* __restrict__ w_re, const double* __restrict__ w_im,
+                     unsigned long long items, int log_t) {
+  const unsigned long long j_mask = (1ull << log_t) - 1;
+  for (unsigned long long k = static_cast<unsigned long long>(blockIdx.x) * kFftStageThreads +
+                              threadIdx.x;
+       k < items; k += static_cast<unsigned long long>(gridDim.x) * kFftStageThreads) {
+    const unsigned long long pair = k * 2;
+    const unsigned long long j = pair & j_mask;
+    const unsigned long long lo = ((pair >> log_t) << (log_t + 1)) + j;
+    const unsigned long long hi = lo + (1ull << log_t);
+    double2 ar = *reinterpret_cast<const double2*>(re + lo);
+    double2 ai = *reinterpret_cast<const double2*>(im + lo);
+    double2 br = *reinterpret_cast<const double2*>(re + hi);
+    double2 bi = *reinterpret_cast<const double2*>(im + hi);
+    butterfly(ar.x, ai.x, br.x, bi.x, __ldg(w_re + j), __ldg(w_im + j));
+    butterfly(ar.y, ai.y, br.y, bi.y, __ldg(w_re + j + 1), __ldg(w_im + j + 1));
+    *reinterpret_cast<double2*>(re + lo) = ar;
+    *reinterpret_cast<double2*>(im + lo) = ai;
+    *reinterpret_cast<double2*>(re + hi) = br;
+    *reinterpret_cast<double2*>(im + hi) = bi;
+  }
+}
+
 // Rows of m = 2^LOGM <= 256 (a half row of m = 256 would be 16 threads):
 // block b holds the rows [b R, (b + 1) R), R = 1024 / m, in shared memory
 // (16 KB for both planes), and its 256 threads run every stage there, a
@@ -371,6 +419,23 @@ int hh_fft(const double* in_re, const double* in_im, double* out_re, double* out
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// F. re/im: [rows, 2^logm] rows (16-byte aligned), in place; w_re/w_im:
+// [2^logt] the stage's twiddles, tw[2^logt - 1 ..] of the compact table;
+// logt in [1, logm - 1]. Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for a logt out of range.
+int hh_fft_stage(double* re, double* im, const double* w_re, const double* w_im, long long rows,
+                 int logm, int logt, void* stream) {
+  if (logt < 1 || logt >= logm) return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned long long items = static_cast<unsigned long long>(rows) << (logm - 2);
+  if (items == 0) return 0;
+  // a grid-stride loop: at most 2^20 blocks
+  const unsigned long long want = (items + kFftStageThreads - 1) / kFftStageThreads;
+  const unsigned blocks = static_cast<unsigned>(want < (1ull << 20) ? want : (1ull << 20));
+  fft_stage_kernel<<<blocks, kFftStageThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      re, im, w_re, w_im, items, logt);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -13,8 +13,10 @@ non-zero `cudaGetLastError()`, and count the launch in `LAUNCHES` and by
 its rows in `LAUNCH_ROWS`. They are called by the wrappers `ops.ntt.ntt` /
 `ops.ntt.intt` (K1, K2, and the stage kernel above MAX_ROW_N), `ops.ntt.ntt_stage`
 (the stage kernel, also behind parallel/ntt_sharded.py's cross stages),
-`rlwe.rgsw.ext_prod` (K3 at alpha=1, K4 at alpha>1) and `ops.fft.fft` (K5),
-which hold the plain PyTorch versions beside them.
+`rlwe.rgsw.ext_prod` (K3 at alpha=1, K4 at alpha>1; K4 on parts of
+MAX_ROW_N after the stage kernel above it) and `ops.fft.fft` (K5; above
+MAX_FFT_M K5 on parts, then the FFT stage kernel F), which hold the plain
+PyTorch versions beside them.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu"}
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
     "ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0, "ext_prod_conv": 0, "fft": 0, "ntt_stage": 0,
+    "fft_stage": 0,
 }
 # the same launches by their rows ({rows: launches}; R for the external products)
 LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
@@ -58,14 +61,18 @@ LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
 # the compact ones
 MIN_N, MAX_ROW_N = 8, 131072
 NTT_SUB_N, EXT_SUB_N = 32768, 16384
-# the rings of ops.ntt.ntt / intt on the card: rows of n > MAX_ROW_N run
-# their first (forward) or last (inverse) log2(n / MAX_ROW_N) stages through
-# the stage kernel, the rest as K1 / K2 launches on parts of MAX_ROW_N, up
-# to MAX_N = 2^23, the largest ring that has a prime q < 2^30 with
-# q = 1 mod 2n (hostmath.gen_ntt_primes: one at 2^23, none at 2^24), so the
-# largest whose tables exist
+# the rings on the card: rows of n > MAX_ROW_N run their first (forward)
+# or last (inverse) log2(n / MAX_ROW_N) stages through the stage kernel, the
+# rest as K1 / K2 launches (ops.ntt.transform) or K4 launches (the key
+# switch, rlwe.rgsw.ext_prod_strict) on parts of MAX_ROW_N, up to MAX_N =
+# 2^23, the largest ring that has a prime q < 2^30 with q = 1 mod 2n
+# (hostmath.gen_ntt_primes: one at 2^23, none at 2^24), so the largest
+# whose tables exist
 MAX_N = 1 << 23
-# the FFT's length m = n/2 of the codec's ring dimension n
+# the FFT's length m = n/2 of the codec's ring dimension n: one K5 launch
+# takes rows up to MAX_FFT_M; ops.fft.fft runs longer ones (up to MAX_N / 2)
+# as K5 on parts of MAX_FFT_M, then one launch of the stage kernel F
+# (fft_stage) for each later stage
 MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_ROW_N // 2
 
 
@@ -161,6 +168,7 @@ _ARGTYPES = {
     },
     "fft": {
         "hh_fft": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
+        "hh_fft_stage": [_P, _P, _P, _P, _LL, _I, _I, _P],
     },
 }
 
@@ -196,8 +204,9 @@ def _require(t: torch.Tensor, name: str, device: torch.device, shape=None,
 
 def _log_n(n: int) -> int:
     if n & (n - 1) or not MIN_N <= n <= MAX_ROW_N:
-        raise ValueError(f"the CUDA kernels take rows of n a power of two in [{MIN_N}, "
-                         f"{MAX_ROW_N}], got {n}")
+        raise ValueError(f"one launch of K1-K4 takes rows of n a power of two in [{MIN_N}, "
+                         f"{MAX_ROW_N}], got {n}; longer rows (up to {MAX_N}) run by parts "
+                         f"through ops.ntt.transform and rlwe.rgsw.ext_prod_strict")
     return n.bit_length() - 1
 
 
@@ -280,7 +289,7 @@ def _row_stride(t: torch.Tensor, name: str) -> int:
 
 
 def ntt_stage(lo: torch.Tensor, hi: torch.Tensor, w, w_sh, q, two_q, inverse: bool = False,
-              n_inv=None, n_inv_sh=None, keep=None) -> torch.Tensor:
+              n_inv=None, n_inv_sh=None, keep=None, in_place: bool = False):
     """The stage kernel: one radix-2 stage on the pairs (lo, hi) of [..., L,
     B, m] (int32 bits of lazy residues, same shape and row stride, rows at
     one stride, 16-byte aligned; m a power of two >= 4, B a power of two),
@@ -290,7 +299,8 @@ def ntt_stage(lo: torch.Tensor, hi: torch.Tensor, w, w_sh, q, two_q, inverse: bo
     first (the last stage of an inverse chain). q/two_q [L, 1]. Returns the
     pairs as [..., L, B, 2, m] (lo' then hi' in each block: in place for a
     row whose blocks they were), or, with keep 0 or 1, only lo' or hi' as
-    [..., L, B, m]."""
+    [..., L, B, m]; with in_place, writes lo' over lo and hi' over hi (each
+    thread reads its pairs before it writes them) and returns None."""
     dev = lo.device
     *lead, L, B, m = lo.shape
     if tuple(hi.shape) != tuple(lo.shape):
@@ -300,8 +310,8 @@ def ntt_stage(lo: torch.Tensor, hi: torch.Tensor, w, w_sh, q, two_q, inverse: bo
                          f"got m={m}, B={B}")
     if (n_inv is None) != (n_inv_sh is None) or (n_inv is not None and not inverse):
         raise ValueError("n_inv and n_inv_sh fold n^-1 into an inverse stage, both or neither")
-    if keep not in (None, 0, 1):
-        raise ValueError(f"keep must be None, 0 or 1, got {keep}")
+    if keep not in (None, 0, 1) or (in_place and keep is not None):
+        raise ValueError(f"keep must be None, 0 or 1, and None in place, got {keep}")
     strides = []
     for t, nm in ((lo, "lo"), (hi, "hi")):
         if not t.is_cuda or t.device != dev or t.dtype != torch.int32:
@@ -322,7 +332,9 @@ def ntt_stage(lo: torch.Tensor, hi: torch.Tensor, w, w_sh, q, two_q, inverse: bo
     for i, c in enumerate(consts):
         _require(c, f"per-limb table {i}", dev, (L, 1))
     rows = lo.numel() // (L * B * m)
-    if keep is None:
+    if in_place:
+        out, outs, out_stride = None, (lo, hi), strides[0]
+    elif keep is None:
         out = torch.empty((*lead, L, B, 2, m), dtype=torch.int32, device=dev)
         outs, out_stride = (out[..., 0, :], out[..., 1, :]), 2 * m
     else:
@@ -419,8 +431,9 @@ def fft(re: torch.Tensor, im: torch.Tensor, tw_re: torch.Tensor, tw_im: torch.Te
     dev = re.device
     m = re.shape[-1]
     if m & (m - 1) or not MIN_FFT_M <= m <= MAX_FFT_M:
-        raise ValueError(f"the FFT kernel takes m a power of two in [{MIN_FFT_M}, {MAX_FFT_M}], "
-                         f"got {m}")
+        raise ValueError(f"one K5 launch takes m a power of two in [{MIN_FFT_M}, {MAX_FFT_M}], "
+                         f"got {m}; longer rows (up to {MAX_N // 2}) run as K5 on parts, then "
+                         f"the stage kernel F, through ops.fft.fft")
     _require(re, "re", dev, dtype=torch.float64)
     _require(im, "im", dev, tuple(re.shape), torch.float64)
     _require(tw_re, "tw_re", dev, (m - 1,), torch.float64)
@@ -436,3 +449,35 @@ def fft(re: torch.Tensor, im: torch.Tensor, tw_re: torch.Tensor, tw_im: torch.Te
         _check_rc(lib, rc, "fft")
         _count("fft", rows)
     return out_re, out_im
+
+
+def fft_stage(re: torch.Tensor, im: torch.Tensor, tw_re: torch.Tensor, tw_im: torch.Tensor,
+              t: int) -> None:
+    """F: one radix-2 DIT stage of span t on every row of re + i·im [..., m]
+    (float64, contiguous, 16-byte aligned), in place: x[lo] and x[lo + t]
+    of each block of 2t, j = lo mod t, become x[lo] ± w_j x[lo + t] under
+    w_j = tw[t - 1 + j] of the compact twiddles tw_re/tw_im (ops.fft's
+    fft_tables of any length >= 2t), K5's butterfly (ops.fft.fft_stage_plain
+    is its plain twin). t a power of two, 2 <= t <= m / 2."""
+    dev = re.device
+    m = re.shape[-1]
+    if m & (m - 1) or t & (t - 1) or not 2 <= t <= m // 2:
+        raise ValueError(f"the FFT stage kernel takes m and t powers of two with "
+                         f"2 <= t <= m / 2, got m={m}, t={t}")
+    _require(re, "re", dev, dtype=torch.float64)
+    _require(im, "im", dev, tuple(re.shape), torch.float64)
+    for tw, nm in ((tw_re, "tw_re"), (tw_im, "tw_im")):
+        _require(tw, nm, dev, dtype=torch.float64)
+        if tw.dim() != 1 or tw.numel() < 2 * t - 1:
+            raise ValueError(f"{nm} must be a compact table of at least {2 * t - 1} entries")
+    if re.data_ptr() % 16 or im.data_ptr() % 16:
+        raise ValueError("re and im must start 16-byte aligned (F loads pairs as double2)")
+    rows = re.numel() // m
+    if rows:
+        lib = _lib("fft")
+        with torch.cuda.device(dev):
+            rc = lib.hh_fft_stage(re.data_ptr(), im.data_ptr(), tw_re[t - 1:].data_ptr(),
+                                  tw_im[t - 1:].data_ptr(), rows, m.bit_length() - 1,
+                                  t.bit_length() - 1, _stream(dev))
+        _check_rc(lib, rc, "fft_stage")
+        _count("fft_stage", rows)

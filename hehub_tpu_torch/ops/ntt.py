@@ -255,12 +255,33 @@ def _part_table(name: str) -> str:
     return sub_table(sub_table(name, kernels.MAX_ROW_N), kernels.NTT_SUB_N)
 
 
+def fwd_cross_stages(x, k: int, tw, tw_sh, q, two_q, on_card: bool):
+    """The first k stages of the forward chain on x [..., L, n] (tables
+    [L, >= 2^k] and [L, 1] beside it), the ones that pair whole parts of
+    n / 2^k: stage s on 2^s blocks of each row, block b of limb l under
+    tw[l, 2^s + b]. on_card: the stage kernel on the halves of each block
+    in place (x contiguous int32 bits), returning x; else ntt_stage_plain on
+    int64, returning a new tensor: the same operations in the same order.
+    ops.ntt's transforms and rlwe.rgsw's key switch above kernels.MAX_ROW_N
+    both run these stages here."""
+    *lead, L, n = x.shape
+    for s in range(k):
+        b = 1 << s
+        v = x.reshape(*lead, L, b, 2, n // (2 * b))
+        args = (v[..., 0, :], v[..., 1, :], tw[:, b:2 * b], tw_sh[:, b:2 * b], q, two_q)
+        if on_card:
+            kernels.ntt_stage(*args, in_place=True)
+        else:
+            x = ntt_stage_plain(*args).reshape(*lead, L, n)
+    return x
+
+
 def _staged(x, rows, inverse: bool, fold: bool, on_card: bool):
     """The transform of x [..., L, n], n > kernels.MAX_ROW_N, by parts: the
     k forward stages that pair whole parts, through the stage kernel on the
-    halves of each block in place (stage s: 2^s blocks of limb l under
-    tw[l, 2^s + b]), then K1 on the 2^k parts of each row under their
-    regrouped table rows (_part_table); the inverse mirrors it, K2 not
+    halves of each block in place (fwd_cross_stages), then K1 on the 2^k
+    parts of each row under their regrouped table rows (_part_table); the
+    inverse mirrors it (the stage kernel out of place), K2 not
     folding n^-1 on the parts, then the stage kernel, block b of the stage
     with 2^t blocks under tw[l, 2^t + b], the last (one block) folding
     n^-1 with `fold`. on_card: the kernels on int32 bits; else their plain
@@ -282,9 +303,7 @@ def _staged(x, rows, inverse: bool, fold: bool, on_card: bool):
                      *last).reshape(*lead, L, n)
 
     if not inverse:
-        for s in range(k):
-            b = 1 << s
-            x = run_stage(b, tw[:, b:2 * b], tw_sh[:, b:2 * b])
+        x = fwd_cross_stages(x, k, tw, tw_sh, q, two_q, on_card)
         parts = x.reshape(*lead, L << k, kernels.MAX_ROW_N)
         part = kernels.ntt_fwd if on_card else ntt_fwd_split
         return part(parts, part_tw, part_tw_sh, part_q, part_two_q).reshape(*lead, L, n)

@@ -16,6 +16,20 @@ CPU tensor. `ext_prod_strict` is its second half, from the strict
 coefficient-form source limbs, for any destination limbs of the key: a
 rank of parallel/mesh.py's limb mesh gathers the source limbs and computes
 only its own destination limbs (and the special primes).
+
+Above kernels.MAX_ROW_N (up to kernels.MAX_N) one K3/K4 launch cannot take
+a row: the first k = log2(n / MAX_ROW_N) stages of each digit NTT pair
+whole parts of MAX_ROW_N. `ext_prod_parts` then builds the digits
+[R, D, L_ext, n] in device memory (int32 bits, in chunks of R), runs those
+k stages through the stage kernel in place (ops.ntt.fwd_cross_stages), and
+launches K4 on virtual limbs: each part of each destination limb is a row
+of MAX_ROW_N under its regrouped table row, so digits, key and output are
+views [.., L_ext 2^k, MAX_ROW_N] of the same memory. At alpha=1 too: after
+the cross stages a digit differs across destination limbs, which K3's
+[R, l, n] digits cannot carry, and K4 runs K3's block program on K4's
+strides. Its plain twin (on_card=False) runs the same operations in the
+same order: ntt_stage_plain, the parts' forward chains, the Montgomery
+contraction in digit order.
 """
 
 from __future__ import annotations
@@ -27,7 +41,7 @@ import torch
 
 from hehub_tpu_torch import kernels
 from hehub_tpu_torch.core import basecnv, rns
-from hehub_tpu_torch.core.context import Context
+from hehub_tpu_torch.core.context import Context, sub_table
 from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly
 from hehub_tpu_torch.ops import modarith as ma
 from hehub_tpu_torch.ops import ntt as nttmod
@@ -121,32 +135,31 @@ def _check_ext(poly: RnsPoly, rgsw: RgswCt) -> None:
                          f"alpha={rgsw.alpha} needs {groups}")
 
 
-def _converted_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
-    """alpha>1 digits in coefficient form: the signed base conversion of
-    each limb group of the strict coeff-form poly `d` into the extended
-    limbs, [..., D, L_ext, n], lazy in [0, 2 q_j)."""
-    groups = _digit_groups(d.limb_count, rgsw.alpha)
-    return torch.stack(
-        [basecnv.base_convert(ctx, rns.take_limbs(d, grp), rgsw.limb_ids, signed=True).data
-         for grp in groups],
-        dim=-3,
-    )
+def _coeff_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt,
+                  dtype: torch.dtype = torch.int64) -> torch.Tensor:
+    """Key-switch digits of the strict coefficient-form `d` [..., l, n]
+    (every source limb) under the key's destination limbs, coefficient
+    form: [..., D, L_ext, n] in `dtype` (int64 residues, or the kernels'
+    int32 bits made directly, never from a whole int64 copy). alpha=1: the
+    strict coefficients of each limb, broadcast across the destination
+    limbs (a strict digit < q_i < 2^30 <= 2 q_j is a valid lazy input under
+    every 30-bit q_j); alpha>1: the signed base conversion of each limb
+    group, lazy in [0, 2 q_j), written into its digit row as it is made."""
+    *batch, l, n = d.data.shape
+    L_ext = len(rgsw.limb_ids)
+    if rgsw.alpha == 1:
+        return d.data.to(dtype)[..., :, None, :].expand(*batch, l, L_ext, n).contiguous()
+    groups = _digit_groups(l, rgsw.alpha)
+    out = torch.empty((*batch, len(groups), L_ext, n), dtype=dtype, device=d.data.device)
+    for g, grp in enumerate(groups):
+        out[..., g, :, :] = basecnv.base_convert(ctx, rns.take_limbs(d, grp), rgsw.limb_ids,
+                                                 signed=True).data
+    return out
 
 
 def _strict_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
-    """Key-switch digits of the strict coefficient-form `d` (every source
-    limb) under the key's destination limbs, NTT form: [..., D, L_ext, n].
-    alpha=1: the strict coefficients of each limb, broadcast across the
-    destination limbs (a strict digit < q_i < 2^30 <= 2 q_j is a valid lazy
-    input under every 30-bit q_j); alpha>1: the signed base conversion of
-    each limb group."""
-    if rgsw.alpha == 1:
-        l, n = d.limb_count, d.dimension
-        digits = d.data[..., :, None, :].expand(*d.batch_shape, l, len(rgsw.limb_ids), n)
-        digits = digits.contiguous()
-    else:
-        digits = _converted_digits(ctx, d, rgsw)
-    return nttmod.ntt(ctx, digits, rgsw.limb_ids)
+    """_coeff_digits in NTT form: [..., D, L_ext, n]."""
+    return nttmod.ntt(ctx, _coeff_digits(ctx, d, rgsw), rgsw.limb_ids)
 
 
 def ks_digits(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
@@ -156,22 +169,28 @@ def ks_digits(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
     return _strict_digits(ctx, rns.reduce_strict(ctx, rns.to_coeff(ctx, poly)), rgsw)
 
 
+def _contract(digits: torch.Tensor, key: torch.Tensor, q, two_q, neg_qinv):
+    """Montgomery contraction of NTT-form digits [..., D, L, n] against key
+    rows [>= D, 2, L, n] under per-limb q/two_q/neg_qinv [L, 1], accumulated
+    in digit order: (c0, c1) [..., L, n]."""
+    halves = []
+    for half in range(2):
+        acc = None
+        for g in range(digits.shape[-3]):
+            prod = ma.mont_mul_lazy(digits[..., g, :, :], key[g, half], q, neg_qinv)
+            acc = prod if acc is None else ma.add_lazy(acc, prod, two_q)
+        halves.append(acc)
+    return halves
+
+
 def ks_contract(ctx: Context, digits: torch.Tensor, rgsw: RgswCt) -> rlwe_mod.RlweCt:
     """Montgomery contraction of NTT-form digits [..., D, L_ext, n] against
     the key rows, accumulated in digit order."""
     ids_ext = rgsw.limb_ids
     dev = digits.device
-    q = ctx.device_rows("q", ids_ext, dev)
-    two_q = ctx.device_rows("two_q", ids_ext, dev)
-    neg_qinv = ctx.device_rows("neg_qinv", ids_ext, dev)
-    halves = []
-    for half in range(2):
-        acc = None
-        for g in range(digits.shape[-3]):
-            prod = ma.mont_mul_lazy(digits[..., g, :, :], rgsw.data[g, half], q, neg_qinv)
-            acc = prod if acc is None else ma.add_lazy(acc, prod, two_q)
-        halves.append(RnsPoly(acc, NTT, ids_ext))
-    return rlwe_mod.RlweCt(halves[0], halves[1])
+    c0, c1 = _contract(digits, rgsw.data, *(ctx.device_rows(nm, ids_ext, dev)
+                                            for nm in ("q", "two_q", "neg_qinv")))
+    return rlwe_mod.RlweCt(RnsPoly(c0, NTT, ids_ext), RnsPoly(c1, NTT, ids_ext))
 
 
 def ext_prod(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
@@ -209,16 +228,106 @@ def ext_prod_strict(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
     ids_ext = rgsw.limb_ids
     l, n = d.limb_count, d.dimension
     batch = d.batch_shape
+    if n > kernels.MAX_ROW_N:
+        if n > kernels.MAX_N:
+            raise ValueError(f"the external product on the card takes n up to {kernels.MAX_N}, "
+                             f"got {n}")
+        return ext_prod_parts(ctx, d, rgsw, kernels.MAX_ROW_N, on_card=True)
     names = nttmod.EXT_SPLIT_TABLES if n > kernels.EXT_SUB_N else nttmod.EXT_TABLES
     tabs = [ctx.device_rows(nm, ids_ext, dev, torch.int32) for nm in names]
     if rgsw.alpha == 1:
         out = kernels.ext_prod(nttmod.to_u32_bits(d.data.reshape(-1, l, n)),
                                nttmod.to_u32_bits(rgsw.data[:l]), *tabs)
     else:
-        digits = _converted_digits(ctx, d, rgsw)
+        digits = _coeff_digits(ctx, d, rgsw, torch.int32)
         D = digits.shape[-3]
-        out = kernels.ext_prod_conv(
-            nttmod.to_u32_bits(digits.reshape(-1, D, len(ids_ext), n)),
-            nttmod.to_u32_bits(rgsw.data[:D]), *tabs)
+        out = kernels.ext_prod_conv(digits.reshape(-1, D, len(ids_ext), n),
+                                    nttmod.to_u32_bits(rgsw.data[:D]), *tabs)
     out = nttmod.from_u32_bits(out).reshape(2, *batch, len(ids_ext), n)
+    return rlwe_mod.RlweCt(RnsPoly(out[0], NTT, ids_ext), RnsPoly(out[1], NTT, ids_ext))
+
+
+# the most bytes of int32 digits [R, D, L_ext, n] one chunk of ext_prod_parts
+# holds in device memory (a chunk is at least one row of R)
+DIGIT_CHUNK_BYTES = 4 << 30
+
+
+def _key_parts(key: torch.Tensor, k: int, part: int) -> torch.Tensor:
+    """The key rows [D, 2, L_ext, n] viewed as [D, 2, L_ext 2^k, part]: part
+    p of limb j as virtual limb j 2^k + p. A view, never a copy: the limb
+    axis must lie at stride n and the last at stride 1."""
+    D, two, L_ext, n = key.shape
+    if key.stride(3) != 1 or key.stride(2) != n:
+        raise ValueError(f"the key's rows must lie at stride n = {n} on its limb axis (and 1 "
+                         f"on its last) to be viewed by parts; got strides {key.stride()}")
+    return key.view(D, two, L_ext << k, part)
+
+
+def parts_route(ctx: Context, ids_ext: Tuple[int, ...], n: int, part: int, device,
+                on_card: bool):
+    """The tables of the external product by parts of `part` over the
+    destination limbs ids_ext: (k = log2(n / part), the cross stages'
+    tw_fwd/tw_fwd_sh/q/two_q [L_ext, .], the virtual limbs' (each part of
+    each limb, L_ext 2^k of them) tw_fwd/tw_fwd_sh regrouped for rows of
+    `part` (sub_table; on_card regrouped again for K4's sub-rows of
+    kernels.EXT_SUB_N) and q/two_q/neg_qinv repeated per part). On the card
+    int32 bits, else int64."""
+    dt = torch.int32 if on_card else torch.int64
+    rows = lambda nm: ctx.device_rows(nm, ids_ext, device, dt)  # noqa: E731
+    k = (n // part).bit_length() - 1
+    part_names = [sub_table(nm, part) for nm in nttmod.EXT_TABLES[:2]]
+    if on_card and part > kernels.EXT_SUB_N:
+        part_names = [sub_table(nm, kernels.EXT_SUB_N) for nm in part_names]
+    part_tabs = tuple(map(rows, part_names)) + tuple(
+        rows(nm).repeat_interleave(1 << k, dim=0) for nm in nttmod.EXT_TABLES[2:])
+    return k, tuple(map(rows, nttmod.FWD_TABLES)), part_tabs
+
+
+def ext_prod_digits(digits: torch.Tensor, key: torch.Tensor, route, on_card: bool):
+    """The external product by parts of lazy coefficient-form digits [R, D,
+    L_ext, n] (contiguous) with key rows [>= D, 2, L_ext, n] under `route`
+    (parts_route): the k forward stages that pair whole parts
+    (ops.ntt.fwd_cross_stages), then each part of each limb a virtual limb:
+    on_card, K4 (kernels.ext_prod_conv) on int32 bits, the cross stages in
+    place in `digits`; else the parts' plain forward chain (ops.ntt.ntt_fwd)
+    and the Montgomery contraction in digit order on int64. Returns [2, R,
+    L_ext, n] in the digits' dtype."""
+    k, cross, part_tabs = route
+    R, D, L_ext, n = digits.shape
+    part = n >> k
+    key = _key_parts(key[:D], k, part)
+    digits = nttmod.fwd_cross_stages(digits.view(R * D, L_ext, n), k, *cross, on_card)
+    digits = digits.view(R, D, L_ext << k, part)
+    if on_card:
+        out = kernels.ext_prod_conv(digits, key, *part_tabs)
+    else:
+        digits = nttmod.ntt_fwd(digits, *part_tabs[:4])
+        out = torch.stack(_contract(digits, key, *part_tabs[2:]))
+    return out.view(2, R, L_ext, n)
+
+
+def ext_prod_parts(ctx: Context, d: RnsPoly, rgsw: RgswCt, part: int,
+                   on_card: bool) -> rlwe_mod.RlweCt:
+    """ext_prod_strict by parts of `part` (a power of two < n): for each
+    chunk of the R = prod(batch) rows (digits under DIGIT_CHUNK_BYTES), the
+    digits [Rc, D, L_ext, n] (_coeff_digits), then ext_prod_digits: on_card
+    the stage kernel and K4 on int32 bits, else their plain twins on int64.
+    Bitwise equal to ks_contract(_strict_digits(...)) either way."""
+    ids_ext = rgsw.limb_ids
+    l, n = d.limb_count, d.dimension
+    L_ext = len(ids_ext)
+    dev = d.data.device
+    route = parts_route(ctx, ids_ext, n, part, dev, on_card)
+    D = len(_digit_groups(l, rgsw.alpha))
+    key = nttmod.to_u32_bits(rgsw.data[:D]) if on_card else rgsw.data[:D]
+    src = d.data.reshape(-1, l, n)
+    chunk = max(1, DIGIT_CHUNK_BYTES // (D * L_ext * n * 4))
+    dt = torch.int32 if on_card else torch.int64
+    outs = [ext_prod_digits(_coeff_digits(ctx, RnsPoly(src[r0:r0 + chunk], COEFF, d.limb_ids),
+                                          rgsw, dt), key, route, on_card)
+            for r0 in range(0, src.shape[0], chunk)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    if on_card:
+        out = nttmod.from_u32_bits(out)
+    out = out.reshape(2, *d.batch_shape, L_ext, n)
     return rlwe_mod.RlweCt(RnsPoly(out[0], NTT, ids_ext), RnsPoly(out[1], NTT, ids_ext))
