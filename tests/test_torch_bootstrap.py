@@ -13,11 +13,11 @@ bitwise equal to the eager one at n=128 and n=1024, mod_raise bitwise equal
 to the CPU's, and no host synchronisation in a warm eager refresh.
 
 hehub_tpu runs its heavy operations jitted (torch_support.jit_reference_ops,
-for the whole module, from the `env` fixture);
-every stage test enters at a level the refresh goes through, so it reuses
-the functions that the refresh compiled. JAX is imported inside the
-fixtures that use it, so the card tests also run where JAX is not
-installed."""
+for the whole module, from the `env` fixture); every stage test enters at
+a level the whole refresh goes through, and the whole refresh comes after
+them, so it reuses the functions that they compiled. JAX is imported
+inside the fixtures that use it, so the card tests also run where JAX is
+not installed."""
 
 import os
 import pathlib
@@ -119,18 +119,15 @@ def _decode(env, ct):
 
 @pytest.fixture(scope="module")
 def refresh(env):
-    """One factored refresh (lt_stages=2, degree 31) of the same exhausted
-    ciphertext by both packages, and the port's Bootstrapper."""
+    """An exhausted ciphertext in both packages, and the port's factored
+    refresh of it (lt_stages=2, degree 31) with its Bootstrapper."""
     v = np.random.default_rng(3).uniform(-1, 1, SLOTS)
     ct, jct = _encrypt(env, v, D_IN, limbs=1)
     mk = lambda: bs.Bootstrapper(env.ctx, env.params, env.rlk, env.rks, env.ck,  # noqa: E731
                                  k_bound=K_BOUND, degree=DEGREE, lt_stages=LT_STAGES)
     booter = mk()
-    jbooter = env.jbs.Bootstrapper(env.jctx, env.jparams, env.jrlk, env.jrks, env.jck,
-                                   k_bound=K_BOUND, degree=DEGREE, lt_stages=LT_STAGES)
-    want = jbooter(jct)
-    return types.SimpleNamespace(ct=ct, jct=jct, v=v, booter=booter, out=booter(ct), want=want,
-                                 jbooter=jbooter, make_booter=mk)
+    return types.SimpleNamespace(ct=ct, jct=jct, v=v, booter=booter, out=booter(ct),
+                                 make_booter=mk)
 
 
 # ---------------------------------------------------------------------------
@@ -197,24 +194,6 @@ def test_make_boot_params(env, args):
 # ---------------------------------------------------------------------------
 
 
-def test_full_refresh(env, refresh):
-    """One whole factored refresh: the same ciphertexts, limbs and scale,
-    and the same plans (plaintexts bitwise)."""
-    _assert_same(refresh.out, refresh.want)
-    assert refresh.out.c0.limb_count >= 3
-    assert sorted(refresh.booter._plans) == sorted(refresh.jbooter._plans)
-    for key, plan in refresh.booter._plans.items():
-        jplan = refresh.jbooter._plans[key]
-        assert sorted(plan.pts) == sorted(jplan.pts) and plan.pt_scale == jplan.pt_scale
-        for gb, pt in plan.pts.items():
-            np.testing.assert_array_equal(as_numpy(pt.data), np.asarray(jplan.pts[gb].data))
-    # a second refresh reuses every plan
-    n_plans = len(refresh.booter._plans)
-    again = refresh.booter(refresh.ct)
-    assert len(refresh.booter._plans) == n_plans
-    assert torch.equal(again.c0.data, refresh.out.c0.data)
-
-
 def test_mod_raise(env, refresh):
     got = bs.mod_raise(env.ctx, refresh.ct)
     want = env.jbs.mod_raise(env.jctx, refresh.jct)
@@ -271,6 +250,26 @@ def test_cheb_eval_constant_remainder(env):
     _assert_same(got, want)
     np.testing.assert_allclose(_decode(env, got).real,
                                np.polynomial.chebyshev.chebval(x, coeffs), atol=1e-4)
+
+
+def test_full_refresh(env, refresh):
+    """One whole factored refresh: the same ciphertexts, limbs and scale,
+    and the same plans (plaintexts bitwise)."""
+    jbooter = env.jbs.Bootstrapper(env.jctx, env.jparams, env.jrlk, env.jrks, env.jck,
+                                   k_bound=K_BOUND, degree=DEGREE, lt_stages=LT_STAGES)
+    _assert_same(refresh.out, jbooter(refresh.jct))
+    assert refresh.out.c0.limb_count >= 3
+    assert sorted(refresh.booter._plans) == sorted(jbooter._plans)
+    for key, plan in refresh.booter._plans.items():
+        jplan = jbooter._plans[key]
+        assert sorted(plan.pts) == sorted(jplan.pts) and plan.pt_scale == jplan.pt_scale
+        for gb, pt in plan.pts.items():
+            np.testing.assert_array_equal(as_numpy(pt.data), np.asarray(jplan.pts[gb].data))
+    # a second refresh reuses every plan
+    n_plans = len(refresh.booter._plans)
+    again = refresh.booter(refresh.ct)
+    assert len(refresh.booter._plans) == n_plans
+    assert torch.equal(again.c0.data, refresh.out.c0.data)
 
 
 # ---------------------------------------------------------------------------
