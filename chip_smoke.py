@@ -16,8 +16,10 @@ Phases, each printing its own lines:
   3. kernels vs plain, at their paths' shapes: K1 (forward NTT) and K2
      (inverse NTT) on [64, 7, 16384]; K3 (alpha=1 external product) with
      R=64, l=7, L_ext=8; K4 (alpha=2 external product) with R=64, D=6,
-     L_ext=14; K5 (FP64 FFT) on [64, 8192] — all bitwise, K5 also against
-     numpy complex128; each timed twice, kernel-only (per call, from a
+     L_ext=14; ModUp (the alpha=2 digits' base conversion) on [64, 12
+     limbs -> 6 x 14, 16384] against base_convert per digit group; K5
+     (FP64 FFT) on [64, 8192] — all bitwise, K5 also against numpy
+     complex128; each timed twice, kernel-only (per call, from a
      torch.profiler trace: each kernel's mean interval times its launches
      per call, for the port's kernels and the library's alike) and per
      call (CUDA events around back-to-back Python calls, the wrapper's host
@@ -40,7 +42,8 @@ Phases, each printing its own lines:
      and 133 rows, 1 and 4 limbs (+2 special), K5 at m = 4, 8, 128, 256;
      each timed as in phase 3 at the small-ring path's shapes (n=256: K1/K2
      on [64, 2, 256], K3 at R=64, l=2, L_ext=3, K4 at R=64, D=2, L_ext=6,
-     K5 on [64, 128]);
+     ModUp at R=64, l=4 -> 2 x 6 (bitwise vs base_convert), K5 on [64,
+     128]);
   4. main path at n=16384, 7+1 limbs, batch 64, keys and noise from a
      seeded CUDA generator: keygen, relin and rotation keys, encode +
      encrypt (device codec), mult + relin + rescale, rotate(1), decrypt +
@@ -54,14 +57,16 @@ Phases, each printing its own lines:
      each K1/K2 launch, of the whole run and of one call of each step;
   5. hybrid path at n=16384 over the full 128-bit budget, 12+2 limbs,
      alpha=2 keys, batch 64: encode, encrypt, mult + relin + rescale,
-     rotate(1), decrypt, decode against a*b and its roll (<= 2^-8); K4 and
-     K5 must have launched during this phase; a CPU replay of 4 rows gives
+     rotate(1), decrypt, decode against a*b and its roll (<= 2^-8); K4,
+     ModUp and K5 must have launched during this phase, one ModUp a K4
+     launch; a CPU replay of 4 rows gives
      bitwise the same ciphertexts; then mult and rotate times and traces,
      and the K1/K2 launch records as in phase 4;
   6. small-ring path: phase 4's steps at tests/test_core.py:121's n=256,
      2+1 limbs, batch 64 (K1-K3, K5 on their small instantiations), with
      its CPU replay, times and traces; then mult + relin + rescale at
-     alpha=2 on 4+2 limbs (K4), 4 rows replayed bitwise;
+     alpha=2 on 4+2 limbs (K4, one ModUp a K4 launch), 4 rows replayed
+     bitwise;
   7. circuits path on phase 5's configuration, batch 16, keys made on the
      card: matrix_vector_mul of a 64 x 64 matrix (narrow, hoisted: 126
      alpha=2 rotation keys), sign (2 iterations), inverse (3 iterations)
@@ -105,8 +110,8 @@ Phases, each printing its own lines:
      m=32768), mult + relin + rescale at alpha=4 (K1, K2, K4), rotate(1)
      at alpha=4, mult + relin + rescale at alpha=1 (K3), decrypt + decode,
      against a*b (<= 2^-8) and its roll (<= 2^-5); all five kernels must
-     have launched; one row of the alpha=4 mult and of the rotate replayed
-     on the CPU bitwise; the batch-8 product and the alpha=4 relin key
+     have launched, and one ModUp a K4 launch; one row of the alpha=4
+     mult and of the rotate replayed on the CPU bitwise; the batch-8 product and the alpha=4 relin key
      saved (utils/serialization.py) and loaded onto the card bitwise equal,
      the loaded ciphertext decoding to the same slots, with bytes and host
      seconds; modulus_headroom_bits fresh and after the mult and
@@ -114,7 +119,9 @@ Phases, each printing its own lines:
      seconds; CUDA-event times per ciphertext of each step and traces of
      the mults and the rotate; K1-K5 at the
      path's shapes and at n=131072 (K5 at m=65536) bitwise against their
-     plain versions and timed as in phase 3 (`*_large` records);
+     plain versions and timed as in phase 3 (`*_large` records), and ModUp
+     at R=8, l=40 -> 10 x 44 and at deep65536.ks_b8's top level, R=8, l=54
+     -> 14 x 58 (`modup_large`, bitwise vs base_convert);
   12. parallel/* at the main path's width (n=16384, 7+1 limbs, batch 64,
      keys made on the card from a seeded generator in every process alike):
      (a) the sharded mult + relin + rescale on a 1x1 mesh in an NCCL world
@@ -177,13 +184,14 @@ Phases, each printing its own lines:
      alpha=1 at R=1, l=2, so K4 at D=2, L_ext=3; the FFT on [1, 2^22]);
   16. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
-     `launch_weighted_kernel_ms`; then the five small-ring records
-     `*_small_n` / `fft_small_m`, whose launches are the small-ring
+     `launch_weighted_kernel_ms`, and ModUp as `modup`; then the six
+     small-ring records `*_small_n` / `fft_small_m`, whose launches are the small-ring
      paths'; then `ntt_fwd_tfhe` / `ntt_inv_tfhe`, whose launches are the
      TFHE path's; then `ntt_fwd_boot`, `ntt_inv_boot`, `ext_prod_boot`,
      `fft_boot`, whose launches are phase 10's; then `ntt_fwd_large`,
      `ntt_inv_large`, `ext_prod_large`, `ext_prod_conv_large`, `fft_large`,
-     whose launches are phase 11's, each with its n=131072 numbers; then
+     whose launches are phase 11's, each with its n=131072 numbers, and
+     `modup_large` with `deep_top`; then
      `ntt_stage`, the stage kernel, whose launches are phase 12's, and
      `ntt_fwd_staged` / `ntt_inv_staged`, K1 / K2 at n=262144; the
      `*_boot16` records, whose launches are phase 13's; phase 14's launches
@@ -217,6 +225,7 @@ from hehub_tpu_torch import config, entry, kernels
 from hehub_tpu_torch.circuits import bootstrap as bs
 from hehub_tpu_torch.circuits import linear_algebra as la
 from hehub_tpu_torch.circuits import poly_eval as pe
+from hehub_tpu_torch.core import basecnv
 from hehub_tpu_torch.core.context import (RlweParams, create_bgv_params, create_ckks_params,
                                           make_context)
 from hehub_tpu_torch.core.rns import COEFF, RnsPoly
@@ -328,6 +337,7 @@ LARGE_LEVELS = 40
 LARGE_SPECIAL = 4
 LARGE_ALPHA = 4
 LARGE_BATCH = 8
+DEEP_LEVELS = 54  # deep65536.ks_b8's top level, for ModUp's record
 MAX_ERR_LARGE_ROT = 2.0**-5
 LARGE_REPLAY_ROWS = 1
 LARGEST_N = 131072
@@ -392,11 +402,14 @@ INT32_PER_S = 132 * 64 * 1.98e9  # 64 INT32 lanes per SM (white paper), 132 SMs,
 # (4), and in its last stage, n^-1 folded in, lo + hi (1) + shoup_mul_lazy
 # (4) + lo + 2q - hi (2) + shoup_mul_lazy (4); a contraction step
 # mont_mul_lazy (7) + add_lazy (3); an FP64 butterfly is 4 products and 6
-# sums.
+# sums; ModUp, per source coefficient shoup_mul_lazy (4) + reduce_strict
+# (2) + z (3) + the carry (3), per output of a group of K limbs K + 1
+# shoup_mul_lazy (4) + K - 1 add_lazy (3) + sub_lazy (4).
 FWD_BUTTERFLY_OPS = 11
 INV_BUTTERFLY_OPS = 9
 INV_LAST_BUTTERFLY_OPS = 11
 CONTRACT_OPS = 10
+MODUP_SRC_OPS = 12
 FFT_BUTTERFLY_FLOPS = 10
 
 
@@ -414,6 +427,9 @@ ORIGIN = {
     # the port's own kernel: one stage of the FFT's later stages, which the
     # reference runs as df64.fft_xla's XLA chain, not a Pallas kernel
     "fft_stage": ("hehub_tpu_torch/csrc/fft.cu", "hehub_tpu/ops/df64.py:260"),
+    # the port's own kernel: ModUp, the reference's jnp base_convert of each
+    # digit group (hehub_tpu/rlwe/rgsw.py:189), not a Pallas kernel
+    "modup": ("hehub_tpu_torch/csrc/basecnv.cu", "hehub_tpu/core/basecnv.py:131"),
 }
 
 
@@ -478,6 +494,41 @@ def ntt_ops(rows, n, inverse=False):
 
 def lazy_residues(gen, shape, two_q):
     return torch.randint(0, 1 << 62, shape, generator=gen, device=gen.device) % two_q
+
+
+def modup_record(ctx, dev, R, l, alpha, gen):
+    """ModUp on strict source limbs [R, l, n] into those l limbs and the
+    context's special limbs at `alpha`: bitwise against
+    base_convert(signed=True) of each digit group on the same card tensors,
+    timed as in phase 3 beside that base_convert loop, the plain chain it
+    replaces (rgsw._coeff_digits off the card)."""
+    n = ctx.params.dimension
+    ids = tuple(range(l))
+    ids_ext = ids + ctx.special_indices
+    groups = [ids[g:g + alpha] for g in range(0, l, alpha)]
+    src = torch.stack([torch.randint(0, m, (R, n), generator=gen, device=dev)
+                       for m in ctx.moduli_of(ids)], dim=1)
+    tabs = basecnv.modup_tables(ctx, ids, ids_ext, alpha, str(dev))
+
+    def plain():
+        out = torch.empty((R, len(groups), len(ids_ext), n), dtype=torch.int32, device=dev)
+        for g, grp in enumerate(groups):
+            part = RnsPoly(src[:, grp[0]:grp[-1] + 1], COEFF, grp)
+            out[:, g] = basecnv.base_convert(ctx, part, ids_ext).data
+        return out
+
+    got, want = kernels.modup(src, *tabs, alpha), plain()
+    err = 0 if torch.equal(got, want) else int((got.long() - want.long()).abs().max())
+    del want
+    nbytes = 8 * src.numel() + 4 * (got.numel() + tabs[0].numel() + tabs[1].numel())
+    return dict(
+        **origin("modup"), match="bitwise vs base_convert per digit group",
+        shape=f"[{R}, {l} -> {len(groups)}x{len(ids_ext)}, {n}], alpha={alpha}",
+        max_abs_err=err, **timed(lambda: kernels.modup(src, *tabs, alpha)),
+        plain_ms=device_time(plain, 1, 3) * 1e3, library_ms=None,
+        **bound(nbytes, R * n * (MODUP_SRC_OPS * l
+                                 + len(ids_ext) * sum(7 * len(g) + 5 for g in groups)),
+                INT32_PER_S))
 
 
 def plain_ext_prod(ctx, digits, rgsw):
@@ -615,6 +666,8 @@ def kernels_vs_plain(ctx, hctx, dev):
                 ntt_ops(c32.numel() // N, N) + c32.numel() * 2 * CONTRACT_OPS, INT32_PER_S),
     )
     del conv, c32, k4, p4
+    # ModUp at the hybrid path's shape: 12 limbs in 6 groups of 2 into 14
+    records["modup"] = modup_record(hctx, dev, BATCH, len(h_ids), ALPHA, gen)
 
     # K5 at the codec's shape: [64, 8192] complex rows in bit-reversed order
     m = N // 2
@@ -922,8 +975,10 @@ def hybrid_path(dev):
     launches, err_mult, err_rot, s = run_path("hybrid", params, ctx, dev, ALPHA, 5)
     check(err_mult <= MAX_ERR_MULT, f"hybrid mult decode error {err_mult} above {MAX_ERR_MULT}")
     check(err_rot <= MAX_ERR_MULT, f"hybrid rotate decode error {err_rot} above {MAX_ERR_MULT}")
-    for name in ("ntt_fwd", "ntt_inv", "ext_prod_conv", "fft"):
+    for name in ("ntt_fwd", "ntt_inv", "ext_prod_conv", "fft", "modup"):
         check(launches[name] > 0, f"kernel {name} was not launched on the hybrid path")
+    check(launches["modup"] == launches["ext_prod_conv"],
+          "the hybrid path did not launch one ModUp a K4 launch")
     cpu_replay("hybrid", ctx, params, s["ca"], s["cb"], s["rlk"], s["rk"], s["sk"],
                (s["prod"], s["rot"]), s["out"])
     ca, cb, prod, rlk, rk = (s[k] for k in ("ca", "cb", "prod", "rlk", "rk"))
@@ -1066,6 +1121,8 @@ def small_kernels(dev):
         library_ms=None,
         **bound(4 * (c32.numel() + conv.shape[1] * 2 * len(ids_ext) * n + 2 * R * len(ids_ext) * n),
                 ntt_ops(c32.numel() // n, n) + c32.numel() * 2 * CONTRACT_OPS, INT32_PER_S))
+    # ModUp at the small path's alpha=2 step: 4 limbs in 2 groups into 6
+    records["modup_small_n"] = modup_record(ctx, dev, R, SMALL_HYBRID_LEVELS, ALPHA, gen)
     # K5 at the small path's codec: [64, 128]
     m = n // 2
     tw = fftmod._device_tables(m, str(dev))
@@ -1133,6 +1190,8 @@ def small_path(dev):
     err = float(np.abs(out - a * b).max())
     check(err <= MAX_ERR_MULT, f"small-n alpha=2 mult decode error {err} above {MAX_ERR_MULT}")
     check(h_launches["ext_prod_conv"] > 0, "K4 was not launched on the small-n alpha=2 step")
+    check(h_launches["modup"] == h_launches["ext_prod_conv"],
+          "the small-n alpha=2 step did not launch one ModUp a K4 launch")
     h_prod_c = ckks.rescale(h_ctx, ckks.mult(h_ctx, _rows_on_cpu(ha, REPLAY_ROWS),
                                              _rows_on_cpu(hb, REPLAY_ROWS), _key_on_cpu(h_rlk)))
     card = _rows_on_cpu(h_prod, REPLAY_ROWS)
@@ -1963,7 +2022,23 @@ def large_kernel_records(ctx, dev, rlk1, rlk4):
         ext_prod_conv=large_ext_record("ext_prod_conv", big, dev, conv, key),
         fft=large_fft_record(dev, LARGEST_SHAPES["fft"], LARGEST_N // 2, gen),
     )
+    del strict, conv, key
+    torch.cuda.empty_cache()
     records = {}
+    # ModUp at the path's alpha=4 shape, and at deep65536.ks_b8's top level
+    # (54 limbs in 14 groups, 13 of 4 and one of 2, into 58)
+    deep = make_context(create_ckks_params(LARGE_N, 28, DEEP_LEVELS, use_security_budget=False,
+                                           num_special=LARGE_SPECIAL))
+    top = modup_record(deep, dev, LARGE_BATCH, DEEP_LEVELS, LARGE_ALPHA, gen)
+    check(top["max_abs_err"] == 0, f"ModUp at {top['shape']} differs from base_convert")
+    top["kernel_over_bound"] = ratio(top["kernel_ms"], top["bound_ms"])
+    records["modup_large"] = dict(modup_record(ctx, dev, LARGE_BATCH, L, LARGE_ALPHA, gen),
+                                  deep_top=top)
+    print(f"[large] modup at {top['shape']}: bitwise vs plain, kernel-only {top['kernel_ms']} "
+          f"ms, call {top['ms']:.4f} ms, plain {top['plain_ms']:.4f} ms, bound "
+          f"{top['bound_ms']:.4f} ms by {top['bound_by']} (bytes {top['bound_bytes_ms']:.4f} ms, "
+          f"operations {top['bound_ops_ms']:.4f} ms), kernel-only / bound "
+          f"{top['kernel_over_bound']}")
     for kind, rec in at_path.items():
         top = at_largest[kind]
         check(top["max_abs_err"] == 0, f"{kind} at n={LARGEST_N} differs from its plain version")
@@ -2035,6 +2110,8 @@ def large_ring_path(dev):
           f"large: rotate decode error {errs['rotate_alpha4']} above {MAX_ERR_LARGE_ROT}")
     for name in TPU_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched on the n={LARGE_N} path")
+    check(launches["modup"] == launches["ext_prod_conv"],
+          f"the n={LARGE_N} path did not launch one ModUp a K4 launch")
     key_gb = sum(k.data.numel() * 8 for k in (rlk4, rk4, rlk1)) / 1e9
     print(f"[large] keygen + keys {t_keys:.3f} s ({key_gb:.3f} GB as int64: alpha=4 "
           f"{list(rlk4.data.shape)} x 2, alpha=1 {list(rlk1.data.shape)}); keygen..decode "

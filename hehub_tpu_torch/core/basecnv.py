@@ -1,10 +1,12 @@
 """RNS base manipulation (port of hehub_tpu/core/basecnv.py): signed
 single-limb lifts, the exact divide-by-last-limb with rounding behind CKKS
 rescale, BGV modulus switching and the special-prime drop, the general
-k -> m base conversion behind hybrid key switching, the base-2^22 digit
-interchange formats of encode (unsigned digits from the host codec,
-balanced digits from the device codec), the Garner mixed-radix conversion
-of decode and BGV decrypt, and the host-exact compose paths.
+k -> m base conversion behind hybrid key switching (and the constant
+tables of ModUp, its kernel for every digit group at once), the
+base-2^22 digit interchange formats of encode (unsigned digits from the
+host codec, balanced digits from the device codec), the Garner
+mixed-radix conversion of decode and BGV decrypt, and the host-exact
+compose paths.
 All device steps are exact integer algorithms, elementwise with per-limb
 host constants.
 """
@@ -186,6 +188,74 @@ def base_convert(ctx: Context, poly: RnsPoly, dst_ids: Tuple[int, ...],
     wQ, wQ_sh = shoup_constants(ctx, [Q % p for p in dst_mods], dst_ids, dev)
     corr = ma.shoup_mul_lazy(v[..., None, :], wQ, wQ_sh, q_dst)
     return RnsPoly(ma.sub_lazy(acc, corr, two_p), COEFF, tuple(dst_ids))
+
+
+@functools.lru_cache(maxsize=None)
+def modup_tables(ctx: Context, src_ids: Tuple[int, ...], dst_ids: Tuple[int, ...], alpha: int,
+                 device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The constants of ModUp (csrc/basecnv.cu): base_convert(signed=True) of
+    each group of `alpha` consecutive limbs of `src_ids` (the last group
+    ragged) into `dst_ids`, as int32 bits of uint32 words on `device`, made
+    once per (limbs, alpha, device):
+      src [l, 8]: per source limb i of its group (product Q), (Q/q_i)^-1
+        mod q_i and its Shoup word, q_i, then c_hi, c_lo of c = floor(2^64 /
+        q_i), three words of padding;
+      dst [D, L_ext, 4 + 2 alpha rounded up to a multiple of 4]: per (group,
+        destination limb p_j), p_j, 2 p_j, Q mod p_j and its Shoup word, then
+        Q/q_i mod p_j and its Shoup word per member i of the group, zeros
+        after the last."""
+    src_mods, dst_mods = ctx.moduli_of(src_ids), ctx.moduli_of(dst_ids)
+    groups = [src_mods[g:g + alpha] for g in range(0, len(src_mods), alpha)]
+    src = np.zeros((len(src_mods), 8), np.uint64)
+    dst = np.zeros((len(groups), len(dst_mods), 4 + 2 * alpha + (-2 * alpha) % 4), np.uint64)
+    for g, mods in enumerate(groups):
+        Q = 1
+        for q in mods:
+            Q *= int(q)
+        for m, q in enumerate(mods):
+            inv = hm.modinv((Q // q) % q, q)
+            c = (1 << 64) // q
+            src[g * alpha + m, :5] = (inv, hm.shoup(inv, q), q, c >> 32, c & ma.MASK32)
+        for j, p in enumerate(dst_mods):
+            dst[g, j, :4] = (p, 2 * p, Q % p, hm.shoup(Q % p, p))
+            for m, q in enumerate(mods):
+                dst[g, j, 4 + 2 * m:6 + 2 * m] = ((Q // q) % p, hm.shoup((Q // q) % p, p))
+    return tuple(torch.from_numpy(t.astype(np.uint32).view(np.int32)).to(device)
+                 for t in (src, dst))
+
+
+def modup_plain(src_tab: torch.Tensor, dst_tab: torch.Tensor, x: torch.Tensor,
+                alpha: int) -> torch.Tensor:
+    """ModUp's plain twin: the kernel's arithmetic in PyTorch, reading its
+    tables (modup_tables). x: strict coefficient-form source limbs [..., l,
+    n] (int64); returns the digits [..., D, L_ext, n] (int64, lazy in [0,
+    2 p_j)), digit g bitwise base_convert(signed=True) of group g."""
+    s = nttmod.from_u32_bits(src_tab)[..., None]  # [l, 8, 1]
+    t = nttmod.from_u32_bits(dst_tab)[..., None]  # [D, L_ext, W, 1]
+    l = x.shape[-2]
+    digits = []
+    for g in range(t.shape[0]):
+        sg = s[g * alpha:min(l, (g + 1) * alpha)]
+        k = sg.shape[0]
+        q = sg[:, 2]
+        y = ma.reduce_strict(ma.shoup_mul_lazy(x[..., g * alpha:g * alpha + k, :], sg[:, 0],
+                                               sg[:, 1], q), q)
+        z = (y * sg[:, 3] + ma.mul_hi(y, sg[:, 4])) & ma.MASK32
+        lo = torch.zeros_like(z[..., 0, :])
+        v = torch.zeros_like(lo)
+        for i in range(k):
+            lo_new = (lo + z[..., i, :]) & ma.MASK32
+            v = v + (lo_new < z[..., i, :]).to(torch.int64)
+            lo = lo_new
+        v = v + (lo >= 1 << 31).to(torch.int64)
+        p, two_p, wQ, wQ_sh = (t[g, :, c] for c in range(4))  # [L_ext, 1]
+        w = t[g, :, 4:4 + 2 * k:2].movedim(1, 0)  # [k, L_ext, 1]
+        w_sh = t[g, :, 5:5 + 2 * k:2].movedim(1, 0)
+        terms = ma.shoup_mul_lazy(y[..., :, None, :], w, w_sh, p)  # [..., k, L_ext, n]
+        acc = ma.reduce_add_lazy(terms, -3, two_p)
+        corr = ma.shoup_mul_lazy(v[..., None, :], wQ, wQ_sh, p)
+        digits.append(ma.sub_lazy(acc, corr, two_p))
+    return torch.stack(digits, dim=-3)
 
 
 # ---------------------------------------------------------------------------

@@ -13,10 +13,10 @@ non-zero `cudaGetLastError()`, and count the launch in `LAUNCHES` and by
 its rows in `LAUNCH_ROWS`. They are called by the wrappers `ops.ntt.ntt` /
 `ops.ntt.intt` (K1, K2, and the stage kernel above MAX_ROW_N), `ops.ntt.ntt_stage`
 (the stage kernel, also behind parallel/ntt_sharded.py's cross stages),
-`rlwe.rgsw.ext_prod` (K3 at alpha=1, K4 at alpha>1; K4 on parts of
-MAX_ROW_N after the stage kernel above it) and `ops.fft.fft` (K5; above
-MAX_FFT_M K5 on parts, then the FFT stage kernel F), which hold the plain
-PyTorch versions beside them.
+`rlwe.rgsw.ext_prod` (K3 at alpha=1, K4 at alpha>1 after ModUp, the
+digits' base conversion; K4 on parts of MAX_ROW_N after the stage kernel
+above it) and `ops.fft.fft` (K5; above MAX_FFT_M K5 on parts, then the FFT
+stage kernel F), which hold the plain PyTorch versions beside them.
 """
 
 from __future__ import annotations
@@ -41,14 +41,14 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # one shared library per source file
-SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu"}
+SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu", "basecnv": "basecnv.cu"}
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
     "ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0, "ext_prod_conv": 0, "fft": 0, "ntt_stage": 0,
-    "fft_stage": 0,
+    "fft_stage": 0, "modup": 0,
 }
-# the same launches by their rows ({rows: launches}; R for the external products)
+# the same launches by their rows ({rows: launches}; R for the external products and ModUp)
 LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
 
 # the rows one launch of K1-K4 takes: every power of two from 8 to
@@ -74,6 +74,8 @@ MAX_N = 1 << 23
 # as K5 on parts of MAX_FFT_M, then one launch of the stage kernel F
 # (fft_stage) for each later stage
 MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_ROW_N // 2
+# the largest digit group ModUp takes (csrc/basecnv.cu's kMaxAlpha)
+MODUP_MAX_ALPHA = 16
 
 
 def reset_launch_counts() -> None:
@@ -169,6 +171,9 @@ _ARGTYPES = {
     "fft": {
         "hh_fft": [_P, _P, _P, _P, _P, _P, _LL, _I, _P],
         "hh_fft_stage": [_P, _P, _P, _P, _LL, _I, _I, _P],
+    },
+    "basecnv": {
+        "hh_modup": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -422,6 +427,46 @@ def ext_prod_conv(digits: torch.Tensor, key: torch.Tensor, tw, tw_sh, q, two_q, 
     _require_rows(digits, "digits", digits.device)
     return _launch_ext_prod("ext_prod_conv", digits, digits.stride()[:3], digits.shape[1], key,
                             (tw, tw_sh, q, two_q, neg_qinv))
+
+
+def modup(src: torch.Tensor, src_tab: torch.Tensor, dst_tab: torch.Tensor,
+          alpha: int) -> torch.Tensor:
+    """ModUp: the hybrid key switch's digits, the signed base conversion of
+    each group of `alpha` source limbs (the last ragged) into every
+    destination limb, in one launch.
+
+    src: [R, l, n] int64 strict coefficient-form limbs (the low 32 bits are
+    read), contiguous; src_tab/dst_tab: core.basecnv.modup_tables of the
+    source and destination limbs. Returns int32 bits [R, D, L_ext, n], D =
+    ceil(l / alpha), lazy in [0, 2 p_j) under destination limb j: K4's
+    digits, bitwise core.basecnv.modup_plain (and base_convert per group)."""
+    dev = src.device
+    if src.dim() != 3:
+        raise ValueError(f"modup takes src [R, l, n], got {tuple(src.shape)}")
+    R, l, n = src.shape
+    if not 1 <= alpha <= MODUP_MAX_ALPHA:
+        raise ValueError(f"modup takes alpha in [1, {MODUP_MAX_ALPHA}], got {alpha}")
+    D = -(-l // alpha)
+    if n & (n - 1) or not MIN_N <= n <= MAX_N:
+        raise ValueError(f"modup takes n a power of two in [{MIN_N}, {MAX_N}], got {n}")
+    _require(src, "src", dev, dtype=torch.int64)
+    _require(src_tab, "src_tab", dev, (l, 8))
+    if dst_tab.dim() != 3 or dst_tab.shape[0] != D or dst_tab.shape[2] % 4:
+        raise ValueError(f"dst_tab {tuple(dst_tab.shape)} does not fit {D} digit groups")
+    _require(dst_tab, "dst_tab", dev)
+    if src.data_ptr() % 16:
+        raise ValueError("src must start 16-byte aligned (ModUp loads it as 16-byte vectors)")
+    L_ext = dst_tab.shape[1]
+    out = torch.empty((R, D, L_ext, n), dtype=torch.int32, device=dev)
+    if R:
+        lib = _lib("basecnv")
+        with torch.cuda.device(dev):
+            rc = lib.hh_modup(src.data_ptr(), out.data_ptr(), src_tab.data_ptr(),
+                              dst_tab.data_ptr(), R, l, alpha, L_ext, n.bit_length() - 3,
+                              dst_tab.shape[2] // 4, _stream(dev))
+        _check_rc(lib, rc, "modup")
+        _count("modup", R)
+    return out
 
 
 def fft(re: torch.Tensor, im: torch.Tensor, tw_re: torch.Tensor, tw_im: torch.Tensor):

@@ -5,9 +5,10 @@ A key-switching key from source key s' to key s is the RGSW encryption of
 s' under s over the RNS base extended by the special prime(s) P, with one
 digit row per group of `alpha` ciphertext limbs: basis B_g ≡ P (mod every
 q_j of group g), ≡ 0 (mod the other limbs and P). alpha=1 is the per-limb
-basis; alpha>1 is hybrid key switching and needs alpha special primes. The
-source-key transforms (s², cycled s, conjugated s) act on the key's NTT
-values.
+basis; alpha>1 is hybrid key switching and needs alpha special primes, and
+on the card at most kernels.MODUP_MAX_ALPHA (16), the largest digit group
+ModUp (csrc/basecnv.cu) takes. The source-key transforms (s², cycled s,
+conjugated s) act on the key's NTT values.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import List, Tuple
 
 import torch
 
+from hehub_tpu_torch import kernels
 from hehub_tpu_torch.core import galois
 from hehub_tpu_torch.core.context import Context
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
@@ -45,31 +47,37 @@ def ksk_gen(ctx: Context, src_ntt: torch.Tensor, sk: rlwe_mod.RlweSk, gen: torch
             alpha: int = 1, **dbg) -> rgsw_mod.RgswCt:
     """KSK(s' -> s): RGSW(s') under s. `src_ntt`: [L_ext, n] strict NTT
     values of s' over the extended limbs; `alpha`: ciphertext limbs per
-    decomposition digit, at most the number of special primes."""
+    decomposition digit, at most the number of special primes, and for a
+    key made on the card at most kernels.MODUP_MAX_ALPHA (its key switch's
+    ModUp takes no larger group)."""
     ids_ext = _ext_ids(ctx)
     if not 1 <= alpha <= ctx.num_special:
         raise ValueError(f"alpha={alpha} needs at least {alpha} special primes "
                          f"(have {ctx.num_special})")
+    if sk.ntt.is_cuda and alpha > kernels.MODUP_MAX_ALPHA:
+        raise ValueError(f"alpha={alpha} on the card: ModUp takes digit groups of at most "
+                         f"{kernels.MODUP_MAX_ALPHA} limbs")
     return rgsw_mod.rgsw_encrypt_rns(ctx, src_ntt, sk, gen, ids_ext, _basis_rows(ctx, alpha),
                                      alpha, **dbg)
 
 
 def relin_key(ctx: Context, sk: rlwe_mod.RlweSk, gen: torch.Generator, alpha: int = 1,
               **dbg) -> rgsw_mod.RgswCt:
-    """KSK(s² -> s)."""
+    """KSK(s² -> s); `alpha` as ksk_gen takes it."""
     qs = ctx.device_rows("q", tuple(range(len(ctx.mod_list))), sk.ntt.device)
     return ksk_gen(ctx, sk.ntt * sk.ntt % qs, sk, gen, alpha=alpha, **dbg)
 
 
 def conj_key(ctx: Context, sk: rlwe_mod.RlweSk, gen: torch.Generator, alpha: int = 1,
              **dbg) -> rgsw_mod.RgswCt:
-    """KSK(involution(s) -> s); the involution reverses NTT values."""
+    """KSK(involution(s) -> s); the involution reverses NTT values; `alpha`
+    as ksk_gen takes it."""
     return ksk_gen(ctx, torch.flip(sk.ntt, dims=(-1,)), sk, gen, alpha=alpha, **dbg)
 
 
 def rot_key(ctx: Context, sk: rlwe_mod.RlweSk, step: int, gen: torch.Generator,
             alpha: int = 1, **dbg) -> rgsw_mod.RgswCt:
-    """KSK(cycle(s, step) -> s)."""
+    """KSK(cycle(s, step) -> s); `alpha` as ksk_gen takes it."""
     n = ctx.params.dimension
     idx = torch.from_numpy(galois.cycle_indices(n, step % n).astype("int64"))
     return ksk_gen(ctx, sk.ntt[:, idx.to(sk.ntt.device)], sk, gen, alpha=alpha, **dbg)

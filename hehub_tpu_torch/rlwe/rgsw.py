@@ -11,7 +11,8 @@ conversion of each group of alpha limbs into every extended limb.
 
 `ks_digits` + `ks_contract` are the plain PyTorch external product.
 `ext_prod` launches the fused CUDA kernel K3 (alpha=1) or K4 (alpha>1),
-both in csrc/extprod.cu, for a CUDA tensor and runs the plain pair for a
+both in csrc/extprod.cu, for a CUDA tensor (at alpha>1 on the digits that
+ModUp, csrc/basecnv.cu, makes in one launch) and runs the plain pair for a
 CPU tensor. `ext_prod_strict` is its second half, from the strict
 coefficient-form source limbs, for any destination limbs of the key: a
 rank of parallel/mesh.py's limb mesh gathers the source limbs and computes
@@ -144,11 +145,19 @@ def _coeff_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt,
     strict coefficients of each limb, broadcast across the destination
     limbs (a strict digit < q_i < 2^30 <= 2 q_j is a valid lazy input under
     every 30-bit q_j); alpha>1: the signed base conversion of each limb
-    group, lazy in [0, 2 q_j), written into its digit row as it is made."""
+    group, lazy in [0, 2 q_j): for a CUDA tensor ModUp, one launch for
+    every group (kernels.modup), else base_convert per group, each written
+    into its digit row as it is made."""
     *batch, l, n = d.data.shape
     L_ext = len(rgsw.limb_ids)
     if rgsw.alpha == 1:
         return d.data.to(dtype)[..., :, None, :].expand(*batch, l, L_ext, n).contiguous()
+    if d.data.is_cuda:
+        tabs = basecnv.modup_tables(ctx, d.limb_ids, rgsw.limb_ids, rgsw.alpha,
+                                    str(d.data.device))
+        out = kernels.modup(d.data.reshape(-1, l, n).contiguous(), *tabs, rgsw.alpha)
+        out = out.view(*batch, *out.shape[1:])
+        return out if dtype == torch.int32 else nttmod.from_u32_bits(out)
     groups = _digit_groups(l, rgsw.alpha)
     out = torch.empty((*batch, len(groups), L_ext, n), dtype=dtype, device=d.data.device)
     for g, grp in enumerate(groups):
@@ -158,8 +167,10 @@ def _coeff_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt,
 
 
 def _strict_digits(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> torch.Tensor:
-    """_coeff_digits in NTT form: [..., D, L_ext, n]."""
-    return nttmod.ntt(ctx, _coeff_digits(ctx, d, rgsw), rgsw.limb_ids)
+    """_coeff_digits in NTT form: [..., D, L_ext, n] (on the card the
+    digits go to K1 as the int32 bits they are made in)."""
+    dt = nttmod.table_dtype(d.data.device)
+    return nttmod.ntt(ctx, _coeff_digits(ctx, d, rgsw, dt), rgsw.limb_ids)
 
 
 def ks_digits(ctx: Context, poly: RnsPoly, rgsw: RgswCt) -> torch.Tensor:

@@ -2,9 +2,15 @@
 against hehub_tpu, mirroring tests/test_hybrid_ks.py: basecnv.base_convert
 bitwise, alpha=2 keys made by hehub_tpu and carried over with `convert`,
 then ext_prod, mult + relin + rescale, rotate(3), conjugate and a level
-that cuts a digit group, all bitwise; the port's own alpha=2 keys; and, on
-the card, the kernel K4 bitwise against its plain version at every n it
-takes.
+that cuts a digit group, all bitwise; the port's own alpha=2 keys; ModUp's
+packed constant table (basecnv.modup_tables), through its plain twin
+basecnv.modup_plain, bitwise base_convert at alpha 2, 3, 4 and every
+ragged last group, built once; and, on the card, the kernel K4 bitwise
+against its plain version at every n it takes, and ModUp (kernels.modup)
+bitwise the plain base_convert per group at both benchmark cells' shapes,
+a ring below 1024 and n = 262144 by parts, ext_prod_strict against the
+CPU, one ModUp launch per CKKS mult and no base_convert on the card, and
+a key made on the card refused above ModUp's largest digit group.
 
 JAX is imported inside the tests that use it, so the card test also runs
 where JAX is not installed."""
@@ -224,3 +230,185 @@ def test_ext_prod_conv_kernel_matches_plain_on_card(cuda_device, logn, rows):  #
     got = trgsw.ext_prod(ctx, trns.RnsPoly(x.to(cuda_device), trns.NTT, ids), rlk_d)
     assert torch.equal(got.c0.data.cpu(), want.c0.data)
     assert torch.equal(got.c1.data.cpu(), want.c1.data)
+
+
+# ---------------------------------------------------------------------------
+# ModUp: the packed constant table and the kernel
+# ---------------------------------------------------------------------------
+
+MODUP_N = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _modup_ctx(n, levels, num_special):
+    return tctx.make_context(tctx.create_ckks_params(
+        n, 28, levels, use_security_budget=False, num_special=num_special))
+
+
+def _strict(rng, batch_shape, ctx, ids, n):
+    """Strict coefficient-form residues [*batch_shape, l, n] (int64)."""
+    return torch.from_numpy(np.stack(
+        [rng.integers(0, q, (*batch_shape, n)) for q in ctx.moduli_of(ids)], axis=-2))
+
+
+@pytest.mark.parametrize("alpha,l", [(2, 4), (2, 5), (3, 6), (3, 7), (3, 8), (4, 8), (4, 9),
+                                     (4, 10), (4, 11)])
+def test_modup_plain_matches_base_convert(alpha, l):
+    """The kernel's arithmetic on its packed table (modup_plain) gives, for
+    every digit group (the last 1 .. alpha limbs), bitwise what
+    base_convert(signed=True) gives into every limb (the group's own
+    included), batch [2, 3]."""
+    ctx = _modup_ctx(MODUP_N, 11, 4)
+    ids = tuple(range(l))
+    ids_ext = ids + ctx.special_indices
+    x = _strict(np.random.default_rng(alpha * 16 + l), (2, 3), ctx, ids, MODUP_N)
+    src_tab, dst_tab = tbc.modup_tables(ctx, ids, ids_ext, alpha, "cpu")
+    groups = trgsw._digit_groups(l, alpha)
+    assert src_tab.dtype == dst_tab.dtype == torch.int32 and src_tab.shape == (l, 8)
+    assert dst_tab.shape == (len(groups), len(ids_ext), 4 + 2 * alpha + (-2 * alpha) % 4)
+    got = tbc.modup_plain(src_tab, dst_tab, x, alpha)
+    assert got.shape == (2, 3, len(groups), len(ids_ext), MODUP_N)
+    for g, grp in enumerate(groups):
+        want = tbc.base_convert(ctx, trns.take_limbs(trns.RnsPoly(x, trns.COEFF, ids), grp),
+                                ids_ext, signed=True)
+        assert torch.equal(got[..., g, :, :], want.data)
+
+
+def test_modup_tables_built_once():
+    """One table per (source limbs, destination limbs, alpha, device): a
+    second key switch's lookup hits the cache and gets the same tensors."""
+    ctx = _modup_ctx(MODUP_N, 11, 4)
+    ids = tuple(range(7))
+    ids_ext = ids + ctx.special_indices
+    tbc.modup_tables.cache_clear()
+    first = tbc.modup_tables(ctx, ids, ids_ext, 3, "cpu")
+    again = tbc.modup_tables(ctx, ids, ids_ext, 3, "cpu")
+    info = tbc.modup_tables.cache_info()
+    assert info.misses == 1 and info.hits == 1
+    assert all(a is b for a, b in zip(first, again))
+
+
+# the benchmark cells' digit shapes (std128: 12 + 2 limbs at alpha=2; deep:
+# 54 + 4 at alpha=4) and a ring below 1024
+MODUP_CARD_CASES = [(16384, 2, l) for l in (1, 2, 3, 12)] + [
+    (65536, 4, l) for l in (2, 5, 53, 54)] + [(256, 3, 7)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [1, 8, 64])
+@pytest.mark.parametrize("n,alpha,l", MODUP_CARD_CASES)
+def test_modup_kernel_matches_plain_on_card(cuda_device, n, alpha, l, R):  # noqa: F811
+    """ModUp's digits [R, D, l + alpha, n] (int32 bits, one launch) bitwise
+    the plain _coeff_digits loop (base_convert of each group, on the same
+    card, 8 rows at a time)."""
+    ctx = _modup_ctx(n, max(l, 12), alpha)
+    ids = tuple(range(l))
+    key = trgsw.RgswCt(torch.empty(0), ids + ctx.special_indices, alpha)
+    d = trns.RnsPoly(_strict(np.random.default_rng(n + l + R), (R,), ctx, ids, n).to(cuda_device),
+                     trns.COEFF, ids)
+    before = kernels.LAUNCHES["modup"]
+    got = trgsw._coeff_digits(ctx, d, key, torch.int32)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["modup"] == before + 1
+    groups = trgsw._digit_groups(l, alpha)
+    assert got.dtype == torch.int32 and got.shape == (R, len(groups), len(key.limb_ids), n)
+    for r0 in range(0, R, 8):
+        rows = trns.RnsPoly(d.data[r0:r0 + 8], trns.COEFF, ids)
+        for g, grp in enumerate(groups):
+            want = tbc.base_convert(ctx, trns.take_limbs(rows, grp), key.limb_ids, signed=True)
+            assert torch.equal(tn.from_u32_bits(got[r0:r0 + 8, g]), want.data), (r0, g)
+
+
+def _random_key(rng, ctx, ids_ext, alpha, l, n):
+    key = lazy_residues(rng, (-(-l // alpha), 2), ctx.moduli_of(ids_ext), n)
+    return convert.rgsw_from_numpy(key, ids_ext, alpha, device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,alpha,l,R", [(16384, 2, 12, 8), (65536, 4, 54, 1)])
+def test_ext_prod_strict_with_modup_on_card(cuda_device, n, alpha, l, R):  # noqa: F811
+    """ext_prod_strict on the card (ModUp, then K4) at the benchmark cells'
+    top levels, bitwise ks_contract(_strict_digits(...)) on the CPU (the
+    plain base_convert per group)."""
+    ctx = _modup_ctx(n, l, alpha)
+    ids = tuple(range(l))
+    rng = np.random.default_rng(n + l)
+    key = _random_key(rng, ctx, ids + ctx.special_indices, alpha, l, n)
+    d = trns.RnsPoly(_strict(rng, (R,), ctx, ids, n), trns.COEFF, ids)
+    before = dict(kernels.LAUNCHES)
+    got = trgsw.ext_prod_strict(ctx, trns.RnsPoly(d.data.to(cuda_device), trns.COEFF, ids),
+                                trgsw.RgswCt(key.data.to(cuda_device), key.limb_ids, alpha))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["modup"] == before["modup"] + 1
+    assert kernels.LAUNCHES["ext_prod_conv"] == before["ext_prod_conv"] + 1
+    want = trgsw.ks_contract(ctx, trgsw._strict_digits(ctx, d, key), key)
+    assert torch.equal(got.c0.data.cpu(), want.c0.data)
+    assert torch.equal(got.c1.data.cpu(), want.c1.data)
+
+
+@pytest.mark.cuda
+def test_modup_by_parts_in_chunks_on_card(cuda_device, monkeypatch):  # noqa: F811
+    """At n = 262144 (the stage kernel, then K4 on parts), digits made a
+    chunk of one row at a time: one ModUp launch a chunk, and the result
+    bitwise ks_contract(_strict_digits(...)) on the CPU; 5 + 2 limbs at
+    alpha=2, 3 rows."""
+    n, l, alpha, R = 262144, 5, 2, 3
+    ctx = _modup_ctx(n, l, alpha)
+    ids = tuple(range(l))
+    rng = np.random.default_rng(7)
+    key = _random_key(rng, ctx, ids + ctx.special_indices, alpha, l, n)
+    d = trns.RnsPoly(_strict(rng, (R,), ctx, ids, n), trns.COEFF, ids)
+    monkeypatch.setattr(trgsw, "DIGIT_CHUNK_BYTES", 1)
+    before = kernels.LAUNCHES["modup"]
+    got = trgsw.ext_prod_strict(ctx, trns.RnsPoly(d.data.to(cuda_device), trns.COEFF, ids),
+                                trgsw.RgswCt(key.data.to(cuda_device), key.limb_ids, alpha))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["modup"] == before + R
+    want = trgsw.ks_contract(ctx, trgsw._strict_digits(ctx, d, key), key)
+    assert torch.equal(got.c0.data.cpu(), want.c0.data)
+    assert torch.equal(got.c1.data.cpu(), want.c1.data)
+
+
+@pytest.mark.cuda
+def test_ckks_mult_launches_one_modup_on_card(cuda_device, monkeypatch):  # noqa: F811
+    """One CKKS mult (+ relinearize) at alpha=2 on the card launches ModUp
+    exactly once and never reaches the plain base_convert with a CUDA
+    tensor; a second mult builds no table."""
+    params, ctx = _port()
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    sk = trlwe.keygen(ctx, gen)
+    rlk = tkeys.relin_key(ctx, sk, gen, alpha=2)
+    a, b = (tckks.encrypt(ctx, tckks.encode(RNG.uniform(-1, 1, (2, N // 2)), params,
+                                            device=cuda_device), sk, gen) for _ in range(2))
+    on_card = []
+    plain = tbc.base_convert
+
+    def counted(ctx, poly, *args, **kw):
+        on_card.append(poly.data.is_cuda)
+        return plain(ctx, poly, *args, **kw)
+
+    monkeypatch.setattr(tbc, "base_convert", counted)
+    before = kernels.LAUNCHES["modup"]
+    tckks.mult(ctx, a, b, rlk)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["modup"] == before + 1
+    misses = tbc.modup_tables.cache_info().misses
+    tckks.mult(ctx, a, b, rlk)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["modup"] == before + 2
+    assert tbc.modup_tables.cache_info().misses == misses
+    assert not any(on_card)
+
+
+@pytest.mark.cuda
+def test_ksk_gen_alpha_above_modup_raises_on_card(cuda_device):  # noqa: F811
+    """A key made on the card takes alpha up to kernels.MODUP_MAX_ALPHA, the
+    largest digit group ModUp takes: one above raises at key generation,
+    not in a later key switch."""
+    alpha = kernels.MODUP_MAX_ALPHA + 1
+    ctx = tctx.make_context(tctx.create_ckks_params(N, 28, 3, use_security_budget=False,
+                                                    num_special=alpha))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    sk = trlwe.keygen(ctx, gen)
+    with pytest.raises(ValueError, match="ModUp"):
+        tkeys.relin_key(ctx, sk, gen, alpha=alpha)
