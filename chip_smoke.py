@@ -4,8 +4,9 @@ kernels, holds each against its plain PyTorch version at the shapes of the
 paths that run it, then drives the CKKS main path, the hybrid
 key-switching path, the small-ring path, the circuits path, BGV, the
 bootstrapped TFHE NAND, the CKKS bootstrap, the large ring, the
-multi-rank paths (parallel/*), the bootstrap at n=16384, the examples and
-CKKS at n=262144 end to end and checks their results.
+multi-rank paths (parallel/*), the bootstrap at n=16384, the examples,
+CKKS at n=262144 and the 128-bit bootstrap set's sparse-secret switches end
+to end and checks their results.
 
     python3 chip_smoke.py
 
@@ -182,7 +183,23 @@ Phases, each printing its own lines:
      stage of those rows), each bitwise its plain version and timed as in
      phase 3, and each again at the top ring n = 2^23 (one prime there:
      alpha=1 at R=1, l=2, so K4 at D=2, L_ext=3; the FFT on [1, 2^22]);
-  16. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
+  16. the 128-bit bootstrap set of the benchmark's boot65536.refresh_b1 at
+     n=65536 (47+4 limbs of 30 bits, alpha=4, secret weight 192, ephemeral
+     weight 32, Δ_in = 2^22), batch 1, keys made on the card (the two SSE
+     keys, the key into the ephemeral secret on q0 and the special primes
+     only; the first CoeffToSlot pair's 15 giant rotations and the third
+     factor's 7 baby rotations): the exhausted ciphertext switched to the
+     ephemeral secret decodes within MAX_ERR_SSE of v; raise_modulus (SSE
+     in at one limb, mod_raise, SSE out at 47 limbs), the first CoeffToSlot
+     pair (rotate_accumulate at 47 limbs) and hoisted rotations at 47
+     limbs, each with the launches of its own run: 2 ModUp and 2 K4, one
+     ModUp a K4 launch, one ModUp and no K4; raise_modulus replayed on the
+     CPU bitwise; CUDA-event times of each; then ModUp on [1, 1 -> 1x5] and
+     [1, 47 -> 12x51] against base_convert per digit group, K4 at D=1,
+     L_ext=5 and D=12, L_ext=51 under the SSE keys, K1 on [1, 47, 65536]
+     and K2 on [1, 1, 65536], each bitwise its plain version on the same
+     card tensors and timed as in phase 3 (`*_sse` records);
+  17. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
      `launch_weighted_kernel_ms`, and ModUp as `modup`; then the six
      small-ring records `*_small_n` / `fft_small_m`, whose launches are the small-ring
@@ -197,7 +214,9 @@ Phases, each printing its own lines:
      `*_boot16` records, whose launches are phase 13's; phase 14's launches
      join K1-K5's `launches_by_path` as "examples"; then phase 15's
      `ext_prod_staged`, `ext_prod_conv_staged`, `fft_staged` and
-     `fft_stage`, whose launches are that phase's); the card line; last,
+     `fft_stage`, whose launches are that phase's; then phase 16's
+     `modup_sse`, `ext_prod_conv_sse`, `ntt_fwd_sse`, `ntt_inv_sse`, whose
+     launches are that phase's); the card line; last,
      the result line {"ok": true, "device": {...}}.
 
 Any failure raises, and the script exits non-zero without a result line.
@@ -209,6 +228,7 @@ than half of the `kernels` line's records lack it.
 """
 
 import copy
+import dataclasses
 import functools
 import hashlib
 import json
@@ -321,6 +341,23 @@ BOOT_K_BOUND = 5
 BOOT_D_IN = 2.0**26
 BOOT_BATCH = 8
 MAX_ERR_BOOT = 1e-3
+# Phase 16, the 128-bit bootstrap set of the benchmark's boot65536.refresh_b1
+# (hebench/configs/ckks_boot_n65536_h192.json): n=65536, 47 + 4 primes of 30
+# bits, alpha=4, a secret of weight 192 and an ephemeral secret of weight 32,
+# the input at 2^22 on one limb, transforms in 4 stages, batch 1; the
+# working scale is the chain's two smallest primes. The SSE round trip's
+# bound: the fresh input's own decode error at 2^22 and n=65536 (about
+# 2^-10) with room
+SSE_N = 65536
+SSE_LEVELS = 47
+SSE_SPECIAL = 4
+SSE_ALPHA = 4
+SSE_WEIGHT = 192
+SSE_EPH_WEIGHT = 32
+SSE_D_IN = 2.0**22
+SSE_LT_STAGES = 4
+SSE_K_BOUND = 13
+MAX_ERR_SSE = 2.0**-6
 # Phase 13, the same refresh at the reference's flagship ring,
 # bench_bootstrap(16384) (bench.py:770-787): nothing cut
 BOOT16_N = 16384
@@ -1899,8 +1936,8 @@ def bootstrap_path(dev, n, flagship=False):
         print(f"[{tag}] host seconds of the set-up (host clock), {card_line()}: "
               f"{json.dumps(host)}")
     print(f"[{tag}] seconds of the phase (host clock): {json.dumps(seconds)}")
-    # the host matrices of the factored transforms (10 GB at n=16384) and
-    # the stage matrices go with the phase
+    # the host matrices of the factored transforms (their diagonals from
+    # n=8192) and the stage matrices go with the phase
     for cache in (bs._merged_chain_matrices, bs._butterfly_factors, bs._butterfly_roots):
         cache.cache_clear()
     return launches, records
@@ -2910,6 +2947,163 @@ def staged_ring_path(dev):
     return records
 
 
+def sse_kernel_records(ctx, dev, sse, gen):
+    """ModUp and K4 at the SSE switches' shapes, batch 1: ModUp on [1, 1 ->
+    1 x 5, n] (the switch into the ephemeral secret at one limb, its key on
+    q0 and the special primes only) and on [1, 47 -> 12 x 51, n] (the switch
+    back at the top, and every key switch of the first CoeffToSlot step)
+    against base_convert(signed=True) per digit group; K4 at D=1, L_ext=5
+    and at D=12, L_ext=51 under the two SSE keys against its plain version;
+    K1 on [1, 47, n] and K2 on [1, 1, n] (mod_raise's); all on the same card
+    tensors, bitwise, timed as in phase 3. The top shapes are nested under
+    `top`."""
+    n, L = ctx.params.dimension, SSE_LEVELS
+    records = {}
+    low, top = (modup_record(ctx, dev, 1, l, SSE_ALPHA, gen) for l in (1, L))
+    records["modup_sse"] = dict(low, top=top)
+    convs = []
+    for key in sse:
+        D, ids_ext = key.rows, key.limb_ids
+        digits = lazy_residues(gen, (1, D, len(ids_ext), n),
+                               ctx.device_rows("two_q", ids_ext, dev))
+        convs.append(dict(**origin("ext_prod_conv"), match="bitwise vs plain",
+                          **large_ext_record("ext_prod_conv", ctx, dev, digits, key)))
+        del digits
+    records["ext_prod_conv_sse"] = dict(convs[0], top=convs[1])
+    records["ntt_fwd_sse"] = dict(**origin("ntt_fwd"), match="bitwise vs plain",
+                                  **large_ntt_record("ntt_fwd", ctx, dev, (1, L, n), gen))
+    records["ntt_inv_sse"] = dict(**origin("ntt_inv"), match="bitwise vs plain",
+                                  **large_ntt_record("ntt_inv", ctx, dev, (1, 1, n), gen))
+    for name, rec in records.items():
+        for r in (rec, rec.get("top")):
+            if r is not None:
+                check(r["max_abs_err"] == 0, f"{name} at {r['shape']} differs from its plain "
+                                             f"version")
+    summarize(records)
+    for name in ("modup_sse", "ext_prod_conv_sse"):
+        t = records[name]["top"]
+        t["kernel_over_bound"] = ratio(t["kernel_ms"], t["bound_ms"])
+        print(f"[sse] {name} at {t['shape']}: bitwise vs plain, kernel-only {t['kernel_ms']} "
+              f"ms, call {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms by {t['bound_by']}, kernel-only / bound "
+              f"{t['kernel_over_bound']}")
+    return records
+
+
+def sse_path(dev):
+    """Phase 16: the 128-bit bootstrap set's sparse-secret encapsulation and
+    its first CoeffToSlot steps, batch 1, keys made on the card (the two SSE
+    keys, the 15 giant rotations of the first CoeffToSlot pair and the 7
+    baby rotations of the third CoeffToSlot factor). Bootstrapper(sse=...)
+    .raise_modulus on one exhausted ciphertext (SSE in at one limb,
+    mod_raise, SSE out at the top), then the first CoeffToSlot pair
+    (c2sR0, c2sI0: giant rotations only, by rotate_accumulate) and the
+    hoisted rotations of the third factor's babies at the top level, each
+    with the launches of its own run (counts reset just before it): one
+    ModUp a K4 launch in the first two, one ModUp and no K4 in the hoisted
+    one. The ciphertext under the ephemeral secret decodes within
+    MAX_ERR_SSE of v; raise_modulus replayed on the CPU bitwise; CUDA-event
+    times of each; then the kernels at these shapes (sse_kernel_records).
+    Returns (launch counts of the phase, the `*_sse` records)."""
+    tag = "sse"
+    params = bs.make_boot_params(SSE_N, SSE_LEVELS, num_special=SSE_SPECIAL)
+    params = dataclasses.replace(params, initial_scaling_factor=float(
+        params.moduli[-1] * params.moduli[-2]))
+    ctx = make_context(params)
+    s = SSE_N // 2
+    gen = torch.Generator(device=dev).manual_seed(71)
+    v = np.random.default_rng(7).uniform(-1, 1, s)
+    log_qp = float(sum(np.log2([float(q) for q in (*params.moduli, *params.special_mods)])))
+    print(f"[{tag}] n={SSE_N} L={SSE_LEVELS}+{SSE_SPECIAL} (log2 QP = {log_qp:.1f}), "
+          f"alpha={SSE_ALPHA}, secret weight {SSE_WEIGHT}, ephemeral weight {SSE_EPH_WEIGHT}, "
+          f"Δ_in = 2^{np.log2(SSE_D_IN):.0f}, lt_stages={SSE_LT_STAGES}, batch 1")
+
+    t0 = time.perf_counter()
+    sk = rlwe_mod.keygen(ctx, gen, hamming_weight=SSE_WEIGHT)
+    sk_eph = rlwe_mod.keygen(ctx, gen, hamming_weight=SSE_EPH_WEIGHT)
+    sse = keys_mod.sse_keys(ctx, sk, sk_eph, gen, alpha=SSE_ALPHA)
+    c2s_r, c2s_im, _, _ = bs._merged_chain_matrices(SSE_N, SSE_LT_STAGES)
+    B = bs._bsgs_split(s)[0]
+    offsets = bs._nonzero_diagonals(c2s_r[0]).tolist() + bs._nonzero_diagonals(c2s_im[0]).tolist()
+    giants = sorted({(-(k // B) * B) % s for k in offsets if k // B})
+    babies = sorted({(-(k % B)) % s for k in bs._nonzero_diagonals(c2s_r[2]).tolist() if k % B})
+    rks = {st: keys_mod.rot_key(ctx, sk, st, gen, alpha=SSE_ALPHA) for st in giants + babies}
+    ct = ckks.encrypt(ctx, ckks.encode(v, params, scaling_factor=SSE_D_IN,
+                                       level=SSE_LEVELS - 1, device=dev), sk, gen)
+    torch.cuda.synchronize()
+    print(f"[{tag}] keys (2 SSE, {len(giants)} giant and {len(babies)} baby rotations) and "
+          f"encrypt {time.perf_counter() - t0:.3f} s, SSE keys "
+          f"{sum(k.data.numel() * 8 for k in sse) / 1e9:.3f} GB as int64, key limbs "
+          f"{[len(k.limb_ids) for k in sse]}, digit rows {[k.rows for k in sse]}")
+    booter = bs.Bootstrapper(ctx, params, None, rks, None, SSE_K_BOUND, lt_stages=SSE_LT_STAGES,
+                             sse=sse)
+
+    check(sse[0].limb_ids == (0,) + ctx.special_indices,
+          f"{tag}: the key into the ephemeral secret lies on {sse[0].limb_ids}")
+    under_eph = ckks.switch_key(ctx, ct, sse[0])
+    err = _decode_err(ctx, params, under_eph, sk_eph, v)
+    check(err <= MAX_ERR_SSE, f"{tag}: decode error {err} under the ephemeral secret above "
+                              f"{MAX_ERR_SSE}")
+    print(f"[{tag}] SSE in: decoded under the ephemeral secret within {err:.3e} of v "
+          f"(bound {MAX_ERR_SSE})")
+
+    runs, launches = {}, {k: 0 for k in kernels.LAUNCHES}
+
+    def run(what, call):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = call()
+        torch.cuda.synchronize()
+        runs[what] = dict(launches={k: c for k, c in kernels.LAUNCHES.items() if c},
+                          rows={k: dict(r) for k, r in kernels.LAUNCH_ROWS.items() if r})
+        for k, c in kernels.LAUNCHES.items():
+            launches[k] += c
+        print(f"[{tag}] {what}: launches {json.dumps(runs[what]['launches'])}, rows "
+              f"{json.dumps(runs[what]['rows'])}")
+        return out
+
+    raised = run("raise_modulus", lambda: booter.raise_modulus(ct))
+    target = raised.scaling_factor * booter._balanced_pt_scale(raised, len(c2s_r))
+    specs = (("c2sR0", c2s_r[0]), ("c2sI0", c2s_im[0]))
+    for name, M in specs:  # the plans outside the counted run
+        booter._plan(name, M, raised, target)
+    pair = run("c2s_pair", lambda: booter._lt_pair(*specs, raised, target))
+    hoisted = run("hoisted", lambda: ckks.hoisted_rotations(ctx, raised, rks, babies))
+    r = {w: runs[w]["launches"] for w in runs}
+    check(r["raise_modulus"].get("modup") == r["raise_modulus"].get("ext_prod_conv") == 2,
+          f"{tag}: raise_modulus launched {r['raise_modulus']}, not 2 ModUp and 2 K4")
+    check(r["c2s_pair"].get("modup") == r["c2s_pair"].get("ext_prod_conv") == 2 * (len(giants)),
+          f"{tag}: the first CoeffToSlot pair launched {r['c2s_pair']}")
+    check(r["hoisted"].get("modup") == 1 and not r["hoisted"].get("ext_prod_conv")
+          and r["hoisted"].get("ntt_fwd", 0) >= 1,
+          f"{tag}: the hoisted rotations launched {r['hoisted']}")
+    check(raised.c0.limb_count == SSE_LEVELS and pair[0].c0.limb_count == SSE_LEVELS - 1
+          and len(hoisted) == len(babies), f"{tag}: limbs {raised.c0.limb_count}, "
+                                           f"{pair[0].c0.limb_count}; {len(hoisted)} rotations")
+
+    t0 = time.perf_counter()
+    cpu = bs.Bootstrapper(ctx, params, None, {}, None, SSE_K_BOUND, lt_stages=SSE_LT_STAGES,
+                          sse=tuple(_key_on_cpu(k) for k in sse))
+    raised_c = cpu.raise_modulus(_boot_ct_on_cpu(ct))
+    check(_same_ct(_boot_ct_on_cpu(raised), raised_c),
+          f"{tag}: the card's raise_modulus differs from the plain CPU path")
+    print(f"[{tag}] plain CPU replay of raise_modulus (SSE in, mod_raise, SSE out): bitwise "
+          f"equal to the card's ({time.perf_counter() - t0:.1f} s on the CPU)")
+
+    times = {
+        "sse_in": device_time(lambda: ckks.switch_key(ctx, ct, sse[0]), 1, 5),
+        "raise_modulus": device_time(lambda: booter.raise_modulus(ct), 1, 5),
+        "c2s_pair": device_time(lambda: booter._lt_pair(*specs, raised, target), 1, 3),
+        "hoisted": device_time(lambda: ckks.hoisted_rotations(ctx, raised, rks, babies), 1, 3),
+    }
+    print(f"[{tag}] CUDA-event ms, batch 1, {card_line()}: "
+          f"{json.dumps({k: t * 1e3 for k, t in times.items()})}")
+    del pair, hoisted, raised, raised_c, cpu, booter, rks
+    torch.cuda.empty_cache()
+    records = sse_kernel_records(ctx, dev, sse, gen)
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -2969,6 +3163,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     staged_records_ = staged_ring_path(dev)
     torch.cuda.empty_cache()
+    sse_launches, sse_records = sse_path(dev)
+    torch.cuda.empty_cache()
     by_path = {"main": main_launches, "hybrid": hybrid_launches, "circuits": circuit_launches,
                "bgv": bgv_launches, "parallel": par_launches, "examples": example_launches}
     for k, rec in records.items():
@@ -3021,6 +3217,12 @@ def main() -> int:
         check(launches > 0, f"kernel {name} was not launched on the parallel path")
     records.update(par_records)
     records.update(staged_records_)
+    for name, rec in sse_records.items():
+        kind = name.rsplit("_sse", 1)[0]
+        rec["launches"] = sse_launches[kind]
+        rec["launches_by_path"] = {"sse": sse_launches[kind]}
+        check(rec["launches"] > 0, f"kernel {name} was not launched on the SSE path")
+    records.update(sse_records)
     lost = [k for k, rec in records.items() if rec["kernel_ms"] is None]
     check(2 * len(lost) <= len(records),
           f"the profiler gave no kernel-only time for {lost}: the instrument, not a dropped record")

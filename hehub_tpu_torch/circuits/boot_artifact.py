@@ -47,6 +47,8 @@ def save(refresh: bs.CompiledBootstrapper, path: str) -> None:
     if not refresh.split:
         raise ValueError("artifact save requires CompiledBootstrapper(split=True)")
     b = refresh.b
+    if b.sse is not None:
+        raise ValueError("an artifact holds no sparse-secret encapsulation keys")
     p = b.params
     plans = []
     for key, plan in b._plans.items():

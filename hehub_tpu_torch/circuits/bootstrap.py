@@ -17,9 +17,23 @@ Pipeline (Cheon-Han-Kim-Kim-Song style):
   4. slot_to_coeff: the inverse linear map, returning a fresh ciphertext of
      m at a usable level.
 
-Every function is bitwise equal to its hehub_tpu counterpart on the same
-inputs and keys, on the CPU. The matrices are host numpy, as in the
-reference. Linear-transform plans encode their diagonals in one batched
+Sparse-secret encapsulation (SSE, `Bootstrapper(sse=...)`, the keys from
+rlwe/keys.sse_keys) wraps step 1: the exhausted ciphertext is switched to
+a sparse ephemeral secret at its one limb, raised, and switched back at
+the top, so |I| is bounded by the ephemeral secret's weight.
+
+Each stage of a refresh (sse_in, mod_raise, sse_out, c2s, evalmod twice,
+s2c) launches its device marker where it begins (kernels.mark of its
+index in MARKERS; "done" after s2c), so that a device trace, CUDA-graph
+replays included, splits a refresh by stage; it opens a host range
+boot.<stage> and counts its key switches (rlwe/rgsw.KEY_SWITCHES) under
+its name in KEY_SWITCHES; REFRESHES counts the ciphertexts refreshed.
+
+Without SSE every function is bitwise equal to its hehub_tpu counterpart
+on the same inputs and keys, on the CPU. The matrices are host numpy, as in
+the reference; from SPARSE_CHAIN_MIN_N the factored chains are built and
+held by their diagonals (Diagonals), where the reference multiplies dense
+matrices. Linear-transform plans encode their diagonals in one batched
 `ckks.encode` on the plan's device (the device codec, kernel K5, where the
 diagonals fit its bound) and one `rns.to_ntt` of [D, L, n] (one K1 launch
 on the card).
@@ -41,6 +55,7 @@ Differences from the reference, none in the arithmetic:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -48,11 +63,38 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from hehub_tpu_torch import kernels
 from hehub_tpu_torch.circuits import poly_eval as pe
 from hehub_tpu_torch.core import rns
 from hehub_tpu_torch.core.context import CkksParams, Context
 from hehub_tpu_torch.models import ckks
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
+
+# the stage markers, in csrc/marker.cu's HH_MARKERS order: empty kernels
+# named boot_mark_<stage>, launched where each stage of a refresh begins
+# ("done" where the last one ends)
+MARKERS = ("sse_in", "mod_raise", "sse_out", "c2s", "evalmod", "s2c", "done")
+
+# ciphertexts refreshed, and key switches by the stage they ran in, since
+# reset_counters(). A CUDA graph's replay runs no Python, so
+# CompiledBootstrapper adds the counts of its discovery refresh for each
+# refresh it replays.
+REFRESHES = 0
+KEY_SWITCHES: Dict[str, int] = {}
+
+
+def reset_counters() -> None:
+    global REFRESHES
+    REFRESHES = 0
+    KEY_SWITCHES.clear()
+
+
+def _count(refreshes: int, key_switches: Dict[str, int]) -> None:
+    global REFRESHES
+    REFRESHES += refreshes
+    for stage, count in key_switches.items():
+        if count:
+            KEY_SWITCHES[stage] = KEY_SWITCHES.get(stage, 0) + count
 
 # ---------------------------------------------------------------------------
 # Numeric derivation of the C2S / S2C matrices for the encoding layout
@@ -110,14 +152,14 @@ def _c2s_s2c_matrices(n: int):
 # slot-wise, and S2C's chain consumes that order.
 
 
-# Above this ring dimension the groups are multiplied out one butterfly at
-# a time as row combinations (two nonzeros a row: O(s^2) a stage) instead of
-# as dense products (O(s^3)), and D scales rows and columns by broadcasting
-# instead of through np.diag products: at n=16384 the dense route takes
-# minutes of host time and 13 GB of stage matrices. The two routes agree to
-# rounding (BLAS sums in an order of its own), not bitwise, so the rings
-# that the tests hold against hehub_tpu bitwise, n=4096 and below, keep the
-# dense route.
+# From this ring dimension on the groups are built in the diagonal domain
+# (Diagonals: a group of r stages of half-widths 2^a .. 2^(a+r-1) has
+# nonzero wrapped diagonals only at offsets sum e_i 2^(a+i), e_i in
+# {-1, 0, 1}, so at most 2^(r+1) - 1 of them), and D scales them as
+# vectors: no s x s array is made, where a dense group takes s^2 x 16 bytes
+# (17.2 GB at n=65536). The two routes agree to rounding (the dense one sums
+# in BLAS's order), not bitwise, so the rings that the tests hold against
+# hehub_tpu bitwise, n=4096 and below, keep the dense route.
 SPARSE_CHAIN_MIN_N = 8192
 
 
@@ -176,28 +218,71 @@ def _butterfly_factors(n: int):
     return tuple(stages), rev, e
 
 
-def _stage_product(roots, first: int, stop: int) -> np.ndarray:
-    """M_stop ⋯ M_(first+1) as a dense matrix (stages first .. stop−1 of
-    `roots`, 0-based), built from the identity one stage at a time as row
-    combinations: (M_t X)[lo] = X[lo] + r[lo]·X[hi],
-    (M_t X)[hi] = X[lo] + r[hi]·X[hi]."""
+class Diagonals:
+    """A slot-space matrix [s, s] held by its wrapped diagonals: vecs[k][j]
+    = M[j, (j + k) mod s] for each offset k it has (any other diagonal is
+    zero)."""
+
+    def __init__(self, s: int, vecs: Dict[int, np.ndarray]):
+        self.s, self.vecs = s, vecs
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.s, self.s)
+
+    def adjoint(self) -> "Diagonals":
+        """M^H: diagonal k of M^H at row j is conj(M[j + k, j]), diagonal -k
+        of M at row j + k."""
+        out = {}
+        for a, v in self.vecs.items():
+            k = (-a) % self.s
+            out[k] = np.conj(np.roll(v, -k))
+        return Diagonals(self.s, out)
+
+    def scale_cols(self, c: np.ndarray) -> "Diagonals":
+        """M · diag(c)."""
+        return Diagonals(self.s, {k: v * np.roll(c, -k) for k, v in self.vecs.items()})
+
+    def scale_rows(self, c: np.ndarray) -> "Diagonals":
+        """diag(c) · M."""
+        return Diagonals(self.s, {k: c * v for k, v in self.vecs.items()})
+
+    def __mul__(self, x: float) -> "Diagonals":
+        return Diagonals(self.s, {k: v * x for k, v in self.vecs.items()})
+
+    def norm(self) -> float:
+        """The Frobenius norm."""
+        return float(np.sqrt(sum(np.vdot(v, v).real for v in self.vecs.values())))
+
+
+def _stage_diagonals(roots, first: int, stop: int) -> Diagonals:
+    """M_stop ⋯ M_(first+1) (stages first .. stop−1 of `roots`, 0-based) in
+    the diagonal domain, from the identity one stage at a time: M_t of
+    half-width h has diagonals 0 (1 on the low rows of each block, r on the
+    high ones), +h (r on the low rows) and −h (1 on the high rows), and
+    diagonal k of M_t·G at row j is Σ_a M_t's diagonal a at j times G's
+    diagonal k − a at j + a."""
     s = roots[0].size
-    G = np.eye(s, dtype=np.complex128)
+    G = {0: np.ones(s, dtype=np.complex128)}
     for t in range(first, stop):
         h = 1 << t
-        X = G.reshape(s // (2 * h), 2, h, s)
-        r = roots[t].reshape(s // (2 * h), 2, h, 1)
-        out = np.empty_like(X)
-        for half in (0, 1):
-            np.multiply(r[:, half], X[:, 1], out=out[:, half])
-            out[:, half] += X[:, 0]
-        G = out.reshape(s, s)
-    return G
+        r = roots[t]
+        low = (np.arange(s) // h) % 2 == 0
+        stage = ((0, np.where(low, 1.0, r)), (h, np.where(low, r, 0.0)),
+                 (s - h, np.where(low, 0.0, 1.0)))
+        out: Dict[int, np.ndarray] = {}
+        for a, m in stage:
+            for k, g in G.items():
+                key = (a + k) % s
+                term = m * np.roll(g, -a)
+                out[key] = out[key] + term if key in out else term
+        G = out
+    return Diagonals(s, G)
 
 
 def _chain_matrices(n: int, lt_stages: int, sparse: bool):
-    """_merged_chain_matrices through the sparse route (sparse=True) or the
-    dense one."""
+    """_merged_chain_matrices in the diagonal domain (sparse=True:
+    Diagonals) or as dense arrays."""
     if sparse:
         roots, rev, e = _butterfly_roots(n)
         d = len(roots)
@@ -209,29 +294,29 @@ def _chain_matrices(n: int, lt_stages: int, sparse: bool):
     groups = []
     for j in range(k):
         if sparse:
-            groups.append(_stage_product(roots, bounds[j], bounds[j + 1]))
+            groups.append(_stage_diagonals(roots, bounds[j], bounds[j + 1]))
             continue
         Gj = Ms[bounds[j]]
         for t in range(bounds[j] + 1, bounds[j + 1]):
             Gj = Ms[t] @ Gj
         groups.append(Gj)
     D = np.exp(1j * np.pi * e / 2)  # ζ^{e_i s}
-    adj = [Gj.conj().T for Gj in groups]
+    adj = [Gj.adjoint() if sparse else Gj.conj().T for Gj in groups]
     c2s_r = [adj[j] for j in range(k - 1, -1, -1)]
     c2s_im = list(c2s_r)
-    c2s_im[0] = (adj[k - 1] * np.conj(D)[None, :] if sparse
+    c2s_im[0] = (adj[k - 1].scale_cols(np.conj(D)) if sparse
                  else adj[k - 1] @ np.diag(np.conj(D)))
     # the 1/n normalization spread over the stages so that every folded
     # factor has the same rms gain κ = (Π gains / n)^(1/k): plan entries stay
     # O(κ/g_t) and the per-stage plan quantization error is balanced
-    gains = [np.linalg.norm(M) / np.sqrt(n / 2) for M in c2s_r]
+    gains = [(M.norm() if sparse else np.linalg.norm(M)) / np.sqrt(n / 2) for M in c2s_r]
     kappa = (np.prod(gains) / n) ** (1.0 / k)
     folds = [kappa / g for g in gains]
     c2s_r = [M * c for M, c in zip(c2s_r, folds)]
     c2s_im = [M * c for M, c in zip(c2s_im, folds)]
     s2c_r = list(groups)
     s2c_im = list(groups)
-    s2c_im[-1] = D[:, None] * s2c_im[-1] if sparse else np.diag(D) @ s2c_im[-1]
+    s2c_im[-1] = groups[-1].scale_rows(D) if sparse else np.diag(D) @ s2c_im[-1]
     return (tuple(c2s_r), tuple(c2s_im), tuple(s2c_r), tuple(s2c_im))
 
 
@@ -242,7 +327,7 @@ def _merged_chain_matrices(n: int, lt_stages: int):
     `lt_stages` near-equal groups G_1..G_k (V = G_k ⋯ G_1 P_br), then
       c2s chains: (1/n)·G_1^H applied last, G_k^H (·D̄ for im) first;
       s2c chains: G_1 applied first, G_k (D·G_k for im) last.
-    Built by the sparse route from n = SPARSE_CHAIN_MIN_N."""
+    Dense arrays below SPARSE_CHAIN_MIN_N, Diagonals from it."""
     return _chain_matrices(n, lt_stages, sparse=n >= SPARSE_CHAIN_MIN_N)
 
 
@@ -250,11 +335,21 @@ def _nonzero_diagonals(M: np.ndarray) -> np.ndarray:
     """The k (ascending) whose wrapped diagonal M[j, (j+k) mod s] holds a
     nonzero entry: one pass over M's nonzeros in place of a gather per k
     (in memory order: the C2S factors are transposes)."""
+    if isinstance(M, Diagonals):
+        return np.asarray(sorted(k for k, v in M.vecs.items() if np.any(v)), dtype=np.int64)
     if M.flags.f_contiguous and not M.flags.c_contiguous:
         j, i = np.nonzero(M.T)
     else:
         i, j = np.nonzero(M)
     return np.unique((j - i) % M.shape[0])
+
+
+def _diagonal(M, k: int) -> np.ndarray:
+    """Wrapped diagonal k of M: M[j, (j + k) mod s] for each row j."""
+    if isinstance(M, Diagonals):
+        return M.vecs[k]
+    idx = np.arange(M.shape[0])
+    return M[idx, (idx + k) % M.shape[0]]
 
 
 def _bsgs_split(s: int) -> Tuple[int, int]:
@@ -273,9 +368,10 @@ def linear_transform_steps(slot_count: int) -> List[int]:
 
 
 class LinearTransformPlan:
-    """Precomputed BSGS diagonal plaintexts of a slot-space matrix at a fixed
-    ciphertext level and scale: every diagonal encoded once, in one batched
-    encode, and kept in NTT form so that each use is one pointwise multiply.
+    """Precomputed BSGS diagonal plaintexts of a slot-space matrix (a dense
+    array or Diagonals) at a fixed ciphertext level and scale: every
+    diagonal encoded once, in one batched encode, and kept in NTT form so
+    that each use is one pointwise multiply.
 
     Attributes: pts[(g, b)] -> RnsPoly NTT [L, n] on the plan's device;
     `codec`: which codec encoded the diagonals ('device' or 'host')."""
@@ -300,7 +396,6 @@ class LinearTransformPlan:
         self.dimension = params.dimension
         B, G = _bsgs_split(s)
         self.B, self.G = B, G
-        idx = np.arange(s)
         keys: List[Tuple[int, int]] = []
         diags: List[np.ndarray] = []
         for k in _nonzero_diagonals(M):
@@ -308,7 +403,7 @@ class LinearTransformPlan:
             # diag_k[j] = M[j, (j+k) mod s], pre-rotated by +gB so the
             # final giant rotation lands it in place
             keys.append((g, b))
-            diags.append(np.roll(M[idx, (idx + k) % s], (g * B) % s))
+            diags.append(np.roll(_diagonal(M, int(k)), (g * B) % s))
         self._keys = keys
         self._diags = np.stack(diags)
         self._level_tag = len(params.moduli) - level
@@ -792,6 +887,10 @@ def cheb_eval(
         return out, r_const
 
     out, const = eval_node(coeffs, base_scale)
+    # the recursive closures hold themselves and the basis (every T_k) in a
+    # reference cycle that only a garbage-collector pass would free, at a
+    # moment no run controls: break it, so the basis goes now
+    schedule = eval_node = None
     # the unrescaled root sits at ≈Δ²/4: rescale to land as close to Δ as
     # the limb geometry allows
     out = ckks.rescale_to(ctx, out, delta)
@@ -949,7 +1048,9 @@ class Bootstrapper:
     """Reusable CKKS bootstrapping pipeline with precomputed linear-
     transform plans (encoded once per (name, level, scale, target)
     signature and cached) and constant plaintexts (ConstantPlaintexts).
-    Plans are made on the device of the ciphertext that first needs them."""
+    Plans are made on the device of the ciphertext that first needs them.
+    `sse`: the two keys of sparse-secret encapsulation around ModRaise
+    (keys.sse_keys), or None."""
 
     def __init__(
         self,
@@ -963,9 +1064,13 @@ class Bootstrapper:
         arcsine=False,
         double_angle: int = 0,
         lt_stages: int = 0,
+        sse: Optional[Tuple[rgsw_mod.RgswCt, rgsw_mod.RgswCt]] = None,
     ):
         self.ctx, self.params = ctx, params
         self.rlk, self.rot_keys, self.conj_key = rlk, rot_keys, conj_key
+        # sparse-secret encapsulation: (KSK(s -> s_eph) over q0 and the
+        # special primes, KSK(s_eph -> s)) from keys.sse_keys, or None
+        self.sse = sse
         self.k_bound, self.degree = k_bound, degree
         self.arcsine = arcsine
         self.double_angle = double_angle
@@ -975,6 +1080,19 @@ class Bootstrapper:
         self._discover = False  # discovery: record plans host_only, fill them timed
         self._strict = False  # capture: a plan miss is a bug
         self._materialize_s = 0.0  # seconds spent filling host_only plans
+
+    @staticmethod
+    @contextlib.contextmanager
+    def _stage(name: str, ct: ckks.CkksCt):
+        """One stage of the refresh: its device marker where it begins, a host
+        range boot.<name>, and its key switches counted under its name."""
+        kernels.mark(MARKERS.index(name), ct.c0.data.device)
+        before = rgsw_mod.KEY_SWITCHES
+        try:
+            with torch.profiler.record_function(f"boot.{name}"):
+                yield
+        finally:
+            _count(0, {name: rgsw_mod.KEY_SWITCHES - before})
 
     def _plan(self, name: str, M: np.ndarray, ct: ckks.CkksCt,
               target_scale: float) -> LinearTransformPlan:
@@ -1036,7 +1154,26 @@ class Bootstrapper:
             ct = self._lt(f"{name}{t}", M, ct, target)
         return ct
 
+    def raise_modulus(self, ct: ckks.CkksCt) -> ckks.CkksCt:
+        """The exhausted ciphertext (1 limb) over the full modulus chain:
+        mod_raise; with sparse-secret encapsulation, switched to the
+        ephemeral secret at its one limb first and back to the secret at the
+        top after, so that I is bounded by the ephemeral secret's weight."""
+        if self.sse is not None:
+            with self._stage("sse_in", ct):
+                ct = ckks.switch_key(self.ctx, ct, self.sse[0])
+        with self._stage("mod_raise", ct):
+            raised = mod_raise(self.ctx, ct)
+        if self.sse is not None:
+            with self._stage("sse_out", raised):
+                raised = ckks.switch_key(self.ctx, raised, self.sse[1])
+        return raised
+
     def coeff_to_slot(self, ct: ckks.CkksCt):
+        with self._stage("c2s", ct):
+            return self._coeff_to_slot(ct)
+
+    def _coeff_to_slot(self, ct: ckks.CkksCt):
         if self.lt_stages:
             # factored: one chain + one conjugation per half; outputs hold
             # the coefficients in bit-reversed order, which slot_to_coeff
@@ -1067,10 +1204,17 @@ class Bootstrapper:
         return r, im
 
     def eval_mod(self, ct: ckks.CkksCt) -> ckks.CkksCt:
-        return eval_mod(self.ctx, self.params, ct, self.rlk, self.k_bound, self.degree,
-                        self.arcsine, self.double_angle, consts=self._consts)
+        with self._stage("evalmod", ct):
+            return eval_mod(self.ctx, self.params, ct, self.rlk, self.k_bound, self.degree,
+                            self.arcsine, self.double_angle, consts=self._consts)
 
     def slot_to_coeff(self, ct_re: ckks.CkksCt, ct_im: ckks.CkksCt):
+        with self._stage("s2c", ct_re):
+            out = self._slot_to_coeff(ct_re, ct_im)
+        kernels.mark(MARKERS.index("done"), out.c0.data.device)
+        return out
+
+    def _slot_to_coeff(self, ct_re: ckks.CkksCt, ct_im: ckks.CkksCt):
         lvl = min(ct_re.c0.limb_count, ct_im.c0.limb_count)
         ct_re = pe.align_level(self.ctx, ct_re, lvl)
         ct_im = pe.align_level(self.ctx, ct_im, lvl)
@@ -1094,7 +1238,12 @@ class Bootstrapper:
         """Refresh an exhausted ciphertext: input at 1 limb, output at
         (levels − consumed) limbs encrypting the same message. The message
         scale Δ_in must satisfy Δ_in·|v| ≪ q0."""
-        raised = mod_raise(self.ctx, ct)  # scale q0, value t/q0
+        out = self._refresh(ct)
+        _count(_rows(ct), {})
+        return out
+
+    def _refresh(self, ct: ckks.CkksCt) -> ckks.CkksCt:
+        raised = self.raise_modulus(ct)  # scale q0, value t/q0
         z_re, z_im = self.coeff_to_slot(raised)
         w_re = self.eval_mod(z_re)
         w_im = self.eval_mod(z_im)
@@ -1105,6 +1254,11 @@ class Bootstrapper:
         return ckks.CkksCt(
             out.c0, out.c1, out.scaling_factor * ct.scaling_factor / float(q0)
         )
+
+
+def _rows(ct: ckks.CkksCt) -> int:
+    """Ciphertexts in a (batched) ciphertext."""
+    return int(np.prod(ct.c0.data.shape[:-2], dtype=np.int64))
 
 
 def bootstrap(
@@ -1170,12 +1324,16 @@ class CompiledBootstrapper:
          seconds of those encodes count under `materialize`), every constant
          plaintext and the metadata between stages;
       2. materialize: fills any plan still recorded host_only;
-      3. capture: on a CUDA ciphertext, each stage (split=True: c2s,
-         evalmod_re, evalmod_im, s2c; the two EvalMod halves share one graph
+      3. capture: on a CUDA ciphertext, each stage (split=True: c2s, which
+         begins with raise_modulus, evalmod_re, evalmod_im, s2c; the two
+         EvalMod halves share one graph
          when their (limbs, scale) signatures match) or the whole refresh is
          captured as a CUDA graph after one warm-up. A failed capture
          raises. On a CPU ciphertext the stage functions run eagerly: that
          is the plain version.
+
+    `key_switches`: the discovery refresh's key switches by stage, which
+    each replayed refresh adds to KEY_SWITCHES.
 
     A call takes ciphertexts of example_ct's batch shape, limbs and scale.
     The stage callables of `stage_fns()` take and return data tensors:
@@ -1196,8 +1354,10 @@ class CompiledBootstrapper:
         self._out_meta = None
         c0, c1 = example_ct.c0.data, example_ct.c1.data
 
-        # 1. discovery: one eager refresh, chained through the stages
+        # 1. discovery: one eager refresh, chained through the stages; its
+        # key switches by stage are what each replayed refresh adds
         mat0 = booter._materialize_s
+        ks0 = dict(KEY_SWITCHES)
         booter._discover = True
         try:
             if not self.split:
@@ -1216,6 +1376,8 @@ class CompiledBootstrapper:
                 self._stage_c(*wre, *wim)
         finally:
             booter._discover = False
+        self.key_switches = {k: v - ks0.get(k, 0) for k, v in KEY_SWITCHES.items()
+                             if v != ks0.get(k, 0)}
         mat = booter._materialize_s - mat0
         self.timings["discovery"] = time.perf_counter() - t0 - mat
 
@@ -1246,17 +1408,17 @@ class CompiledBootstrapper:
         return ckks.CkksCt(rns.RnsPoly(c0, rns.NTT, ids), rns.RnsPoly(c1, rns.NTT, ids), scale)
 
     def _refresh(self, c0, c1):
-        out = self.b(self._ct(c0, c1, self.ids_in, self.scale_in))
+        out = self.b._refresh(self._ct(c0, c1, self.ids_in, self.scale_in))
         self._out_meta = (out.c0.limb_ids, float(out.scaling_factor))
         return out.c0.data, out.c1.data
 
     # ---- split-mode stages ------------------------------------------------
 
     def _stage_a(self, c0, c1):
-        """mod-raise + CoeffToSlot -> the two half ciphertexts."""
+        """raise_modulus + CoeffToSlot -> the two half ciphertexts."""
         b = self.b
-        z_re, z_im = b.coeff_to_slot(mod_raise(b.ctx, self._ct(c0, c1, self.ids_in,
-                                                               self.scale_in)))
+        z_re, z_im = b.coeff_to_slot(b.raise_modulus(self._ct(c0, c1, self.ids_in,
+                                                              self.scale_in)))
         self._meta["a"] = (
             (z_re.c0.limb_ids, float(z_re.scaling_factor)),
             (z_im.c0.limb_ids, float(z_im.scaling_factor)),
@@ -1312,5 +1474,7 @@ class CompiledBootstrapper:
             re0, re1, im0, im1 = fa(ct.c0.data, ct.c1.data)
             wre, wim = fb_re(re0, re1), fb_im(im0, im1)
             o0, o1 = fc(*wre, *wim)
+        # a replay ran no Python to count its key switches
+        _count(_rows(ct), self.key_switches if self.device.type == "cuda" else {})
         ids, scale = self._out_meta
         return self._ct(o0, o1, ids, scale)

@@ -17,6 +17,8 @@ its rows in `LAUNCH_ROWS`. They are called by the wrappers `ops.ntt.ntt` /
 digits' base conversion; K4 on parts of MAX_ROW_N after the stage kernel
 above it) and `ops.fft.fft` (K5; above MAX_FFT_M K5 on parts, then the FFT
 stage kernel F), which hold the plain PyTorch versions beside them.
+`mark` launches a marker (csrc/marker.cu: empty kernels, each under the
+name of a stage of the bootstrap, circuits/bootstrap.MARKERS).
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # one shared library per source file
-SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu", "basecnv": "basecnv.cu"}
+SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu", "basecnv": "basecnv.cu",
+           "marker": "marker.cu"}
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
@@ -174,6 +177,9 @@ _ARGTYPES = {
     },
     "basecnv": {
         "hh_modup": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+    },
+    "marker": {
+        "hh_boot_mark": [_I, _P],
     },
 }
 
@@ -467,6 +473,19 @@ def modup(src: torch.Tensor, src_tab: torch.Tensor, dst_tab: torch.Tensor,
         _check_rc(lib, rc, "modup")
         _count("modup", R)
     return out
+
+
+def mark(marker: int, device: torch.device) -> None:
+    """Launch marker number `marker` of csrc/marker.cu (in its HH_MARKERS
+    order) on the current stream of `device`; nothing off the card. Not
+    counted in LAUNCHES."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return
+    lib = _lib("marker")
+    with torch.cuda.device(device):
+        rc = lib.hh_boot_mark(marker, _stream(device))
+    _check_rc(lib, rc, f"marker {marker}")
 
 
 def fft(re: torch.Tensor, im: torch.Tensor, tw_re: torch.Tensor, tw_im: torch.Tensor):

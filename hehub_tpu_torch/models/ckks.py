@@ -564,6 +564,14 @@ def conjugate(ctx, ct: CkksCt, ck: rgsw_mod.RgswCt) -> CkksCt:
     return CkksCt(rns.add(ctx, d0, i0), d1, ct.scaling_factor)
 
 
+def switch_key(ctx, ct: CkksCt, ksk: rgsw_mod.RgswCt) -> CkksCt:
+    """The ciphertext under the key's target secret: the key switch of c1,
+    plus c0. The key may cover only the ciphertext's limbs and the special
+    primes (keys.ksk_gen's `chain_limbs`)."""
+    d0, d1 = _key_switch(ctx, ct.c1, ksk)
+    return CkksCt(rns.add(ctx, d0, ct.c0), d1, ct.scaling_factor)
+
+
 def rotate(ctx, ct: CkksCt, rk: rgsw_mod.RgswCt, step: int) -> CkksCt:
     """Slot rotation (slot i moves to slot i+step): Galois gather + key
     switch."""
@@ -622,6 +630,7 @@ def hoisted_rotations(ctx, ct: CkksCt, rot_keys: Dict[int, rgsw_mod.RgswCt],
     digits = rgsw_mod.ks_digits(ctx, ct.c1, rot_keys[steps[0]].at_level(level, ctx.num_special))
     for st in steps:
         k = rot_keys[st].at_level(level, ctx.num_special)
+        rgsw_mod.count_key_switch()
         d0, d1 = _div_special(ctx, *rgsw_mod.ks_contract(ctx, galois.cycle_values(digits, st), k))
         out[st] = CkksCt(rns.add(ctx, d0, galois.cycle(ct.c0, st)), d1, ct.scaling_factor)
     return out

@@ -49,6 +49,16 @@ from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
 from hehub_tpu_torch.utils import hostmath as hm
 
+# key switches since import: external products (ext_prod_strict) and the
+# contractions of hoisted rotations (count_key_switch), a batch counting one
+KEY_SWITCHES = 0
+
+
+def count_key_switch() -> None:
+    global KEY_SWITCHES
+    KEY_SWITCHES += 1
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class RgswCt:
     """data: [rows, 2, L_ext, n] int64 Montgomery-domain NTT values.
@@ -232,6 +242,7 @@ def ext_prod_strict(ctx: Context, d: RnsPoly, rgsw: RgswCt) -> rlwe_mod.RlweCt:
         raise ValueError(f"key has {rgsw.rows} digit rows but {d.limb_count} source limbs at "
                          f"alpha={rgsw.alpha} need {groups}")
     dev = d.data.device
+    count_key_switch()
     if dev.type != "cuda":
         if dev.type != "cpu":
             raise ValueError(f"no ext_prod for tensors on {dev}")
