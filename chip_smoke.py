@@ -201,21 +201,25 @@ Phases, each printing its own lines:
      card tensors and timed as in phase 3 (`*_sse` records);
   17. a `kernels` JSON line (K1-K5 at their large shapes, with K1 and K2's
      `by_rows`, their times at each row count, and
-     `launch_weighted_kernel_ms`, and ModUp as `modup`; then the six
+     `launch_weighted_kernel_ms`, ModUp as `modup` and ModDown's two kernels
+     as `moddown_lift` / `moddown_apply` at the hybrid path's top level,
+     each also with the chain's times beside the plain loop's; then the six
      small-ring records `*_small_n` / `fft_small_m`, whose launches are the small-ring
      paths'; then `ntt_fwd_tfhe` / `ntt_inv_tfhe`, whose launches are the
      TFHE path's; then `ntt_fwd_boot`, `ntt_inv_boot`, `ext_prod_boot`,
      `fft_boot`, whose launches are phase 10's; then `ntt_fwd_large`,
      `ntt_inv_large`, `ext_prod_large`, `ext_prod_conv_large`, `fft_large`,
      whose launches are phase 11's, each with its n=131072 numbers, and
-     `modup_large` with `deep_top`; then
+     `modup_large` with `deep_top`, `moddown_lift_large` /
+     `moddown_apply_large` at deep65536.ks_b8's top level; then
      `ntt_stage`, the stage kernel, whose launches are phase 12's, and
      `ntt_fwd_staged` / `ntt_inv_staged`, K1 / K2 at n=262144; the
      `*_boot16` records, whose launches are phase 13's; phase 14's launches
      join K1-K5's `launches_by_path` as "examples"; then phase 15's
      `ext_prod_staged`, `ext_prod_conv_staged`, `fft_staged` and
      `fft_stage`, whose launches are that phase's; then phase 16's
-     `modup_sse`, `ext_prod_conv_sse`, `ntt_fwd_sse`, `ntt_inv_sse`, whose
+     `modup_sse`, `ext_prod_conv_sse`, `ntt_fwd_sse`, `ntt_inv_sse`,
+     `moddown_lift_sse`, `moddown_apply_sse` (47 + 4 limbs, batch 1), whose
      launches are that phase's); the card line; last,
      the result line {"ok": true, "device": {...}}.
 
@@ -248,7 +252,7 @@ from hehub_tpu_torch.circuits import poly_eval as pe
 from hehub_tpu_torch.core import basecnv
 from hehub_tpu_torch.core.context import (RlweParams, create_bgv_params, create_ckks_params,
                                           make_context)
-from hehub_tpu_torch.core.rns import COEFF, RnsPoly
+from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly
 from hehub_tpu_torch.models import bgv, ckks, tfhe
 from hehub_tpu_torch.examples import bgv_example, ckks_example, tfhe_example
 from hehub_tpu_torch.native import loader as native_loader
@@ -447,6 +451,14 @@ INV_BUTTERFLY_OPS = 9
 INV_LAST_BUTTERFLY_OPS = 11
 CONTRACT_OPS = 10
 MODUP_SRC_OPS = 12
+# ModDown: the lift's centred remainder of a correction word (reduce_strict
+# 2, the compare, select and add 3), per dropped source coefficient its fold
+# (2) and per pair of a step and a lower dropped limb the remainder (5),
+# sub_lazy (3), shoup_mul_lazy (4) and the fold (2); the apply's sub_lazy (3)
+# and shoup_mul_lazy (4) a step of an output word
+MODDOWN_LIFT_OPS = 5
+MODDOWN_WALK_OPS = 14
+MODDOWN_APPLY_OPS = 7
 FFT_BUTTERFLY_FLOPS = 10
 
 
@@ -467,6 +479,9 @@ ORIGIN = {
     # the port's own kernel: ModUp, the reference's jnp base_convert of each
     # digit group (hehub_tpu/rlwe/rgsw.py:189), not a Pallas kernel
     "modup": ("hehub_tpu_torch/csrc/basecnv.cu", "hehub_tpu/core/basecnv.py:131"),
+    # the port's own kernels: ModDown's lift and apply around K2 and K1, the
+    # reference's jnp div_last_rounded once a dropped limb, not a Pallas kernel
+    "moddown": ("hehub_tpu_torch/csrc/basecnv.cu", "hehub_tpu/core/basecnv.py:47"),
 }
 
 
@@ -566,6 +581,56 @@ def modup_record(ctx, dev, R, l, alpha, gen):
         **bound(nbytes, R * n * (MODUP_SRC_OPS * l
                                  + len(ids_ext) * sum(7 * len(g) + 5 for g in groups)),
                 INT32_PER_S))
+
+
+def moddown_records(ctx, dev, R, L, count, gen):
+    """ModDown on both halves [R, L + count, n] of lazy NTT-form residues
+    (div_last_rounded_many on the card: K2, the lift, K1, the apply) bitwise
+    against the plain loop it replaces (count div_last_rounded calls on both
+    halves stacked, on the same card tensors), the chain timed per call
+    (`chain_ms`) and kernel-only (its four launches, `chain_kernel_ms`)
+    beside that loop (`plain_ms`); then the lift and the apply alone, each
+    timed as in phase 3 beside its bound. Returns (lift's record, apply's)."""
+    n = ctx.params.dimension
+    ids = tuple(range(L + count))
+    two_q = ctx.device_rows("two_q", ids, dev)
+    a, b = (RnsPoly(lazy_residues(gen, (R, L + count, n), two_q), NTT, ids) for _ in range(2))
+
+    def loop():
+        x, y = a, b
+        for _ in range(count):
+            out = basecnv.div_last_rounded(ctx, RnsPoly(torch.stack([x.data, y.data]), NTT,
+                                                        x.limb_ids))
+            x, y = (RnsPoly(out.data[h], NTT, out.limb_ids) for h in range(2))
+        return x, y
+
+    def chain():
+        return basecnv.div_last_rounded_many(ctx, a, b, count)
+
+    got, want = chain(), loop()
+    err = max(int((g.data - w.data).abs().max()) for g, w in zip(got, want))
+    del got, want
+    tab = basecnv.moddown_tables(ctx, ids, count, str(dev))
+    low = nttmod.transform_bits(torch.stack([a.data[:, L:], b.data[:, L:]]).to(torch.int32),
+                                nttmod.limb_rows(ctx, ids[L:]), inverse=True)
+    low = low.view(2 * R, count, n)
+    rhat = nttmod.transform_bits(kernels.moddown_lift(low, tab, L), nttmod.limb_rows(ctx, ids[:L]))
+    x0, x1 = a.data.contiguous(), b.data.contiguous()
+    common = dict(
+        **origin("moddown"), match=f"the chain bitwise vs {count} div_last_rounded calls",
+        shape=f"[{R}, {L} + {count}, {n}]", max_abs_err=err, chain_ms=device_time(chain) * 1e3,
+        **kernel_only(chain, key="chain_kernel_ms"), plain_ms=device_time(loop, 1, 3) * 1e3,
+        library_ms=None)
+    words = 2 * R * count * L * n  # the corrections
+    lift = dict(common, **timed(lambda: kernels.moddown_lift(low, tab, L)),
+                **bound(4 * (low.numel() + words + tab.numel()),
+                        MODDOWN_LIFT_OPS * words + 2 * R * n * (
+                            2 * count + MODDOWN_WALK_OPS * count * (count - 1) // 2),
+                        INT32_PER_S))
+    apply = dict(common, **timed(lambda: kernels.moddown_apply(x0, x1, rhat, tab)),
+                 **bound(8 * 2 * (2 * R * L * n) + 4 * (words + tab.numel()),
+                         MODDOWN_APPLY_OPS * words, INT32_PER_S))
+    return lift, apply
 
 
 def plain_ext_prod(ctx, digits, rgsw):
@@ -705,6 +770,9 @@ def kernels_vs_plain(ctx, hctx, dev):
     del conv, c32, k4, p4
     # ModUp at the hybrid path's shape: 12 limbs in 6 groups of 2 into 14
     records["modup"] = modup_record(hctx, dev, BATCH, len(h_ids), ALPHA, gen)
+    # ModDown at the hybrid path's top level (std128.ks_b64's): 12 + 2 limbs
+    records["moddown_lift"], records["moddown_apply"] = moddown_records(
+        hctx, dev, BATCH, len(h_ids), HYBRID_SPECIAL, gen)
 
     # K5 at the codec's shape: [64, 8192] complex rows in bit-reversed order
     m = N // 2
@@ -2071,6 +2139,9 @@ def large_kernel_records(ctx, dev, rlk1, rlk4):
     top["kernel_over_bound"] = ratio(top["kernel_ms"], top["bound_ms"])
     records["modup_large"] = dict(modup_record(ctx, dev, LARGE_BATCH, L, LARGE_ALPHA, gen),
                                   deep_top=top)
+    # ModDown at deep65536.ks_b8's top level: 54 + 4 limbs
+    records["moddown_lift_large"], records["moddown_apply_large"] = moddown_records(
+        deep, dev, LARGE_BATCH, DEEP_LEVELS, LARGE_SPECIAL, gen)
     print(f"[large] modup at {top['shape']}: bitwise vs plain, kernel-only {top['kernel_ms']} "
           f"ms, call {top['ms']:.4f} ms, plain {top['plain_ms']:.4f} ms, bound "
           f"{top['bound_ms']:.4f} ms by {top['bound_by']} (bytes {top['bound_bytes_ms']:.4f} ms, "
@@ -2974,6 +3045,9 @@ def sse_kernel_records(ctx, dev, sse, gen):
                                   **large_ntt_record("ntt_fwd", ctx, dev, (1, L, n), gen))
     records["ntt_inv_sse"] = dict(**origin("ntt_inv"), match="bitwise vs plain",
                                   **large_ntt_record("ntt_inv", ctx, dev, (1, 1, n), gen))
+    # ModDown at a key switch of the refresh's top level: 47 + 4 limbs
+    records["moddown_lift_sse"], records["moddown_apply_sse"] = moddown_records(
+        ctx, dev, 1, L, ctx.num_special, gen)
     for name, rec in records.items():
         for r in (rec, rec.get("top")):
             if r is not None:

@@ -1,7 +1,8 @@
 """RNS base manipulation (port of hehub_tpu/core/basecnv.py): signed
 single-limb lifts, the exact divide-by-last-limb with rounding behind CKKS
-rescale, BGV modulus switching and the special-prime drop, the general
-k -> m base conversion behind hybrid key switching (and the constant
+rescale, BGV modulus switching and the special-prime drop (and the
+constant table of ModDown, its kernels for every dropped limb at once), the
+general k -> m base conversion behind hybrid key switching (and the constant
 tables of ModUp, its kernel for every digit group at once), the
 base-2^22 digit interchange formats of encode (unsigned digits from the
 host codec, balanced digits from the device codec), the Garner
@@ -19,6 +20,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from hehub_tpu_torch import kernels
 from hehub_tpu_torch.core.context import Context
 from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly, shoup_constants
 from hehub_tpu_torch.ops import modarith as ma
@@ -118,16 +120,139 @@ def div_last_rounded(ctx: Context, poly: RnsPoly, plain_modulus: Optional[int] =
 def div_last_rounded_pair(ctx: Context, a: RnsPoly, b: RnsPoly,
                           plain_modulus: Optional[int] = None,
                           restore_plain_scale: bool = True) -> Tuple[RnsPoly, RnsPoly]:
-    """div_last_rounded on both ciphertext halves in one stacked call: the
-    INTT/NTT kernels see twice the rows and half the launches."""
-    if a.limb_ids != b.limb_ids or a.form != b.form:
-        raise ValueError("pair must share limbs and form")
-    out = div_last_rounded(ctx, RnsPoly(torch.stack([a.data, b.data]), a.form, a.limb_ids),
-                           plain_modulus, restore_plain_scale)
-    return (
-        RnsPoly(out.data[0], out.form, out.limb_ids),
-        RnsPoly(out.data[1], out.form, out.limb_ids),
-    )
+    """div_last_rounded on both ciphertext halves: div_last_rounded_many by
+    one limb."""
+    return div_last_rounded_many(ctx, a, b, 1, plain_modulus, restore_plain_scale)
+
+
+# divisions by one limb that div_last_rounded_many ran as the plain loop on
+# a CUDA tensor (the BGV flavour; the CKKS flavour runs ModDown there)
+PLAIN_DIVISIONS_ON_CARD = 0
+
+
+def div_last_rounded_many(ctx: Context, a: RnsPoly, b: RnsPoly, count: int,
+                          plain_modulus: Optional[int] = None,
+                          restore_plain_scale: bool = True) -> Tuple[RnsPoly, RnsPoly]:
+    """Both ciphertext halves divided by their last `count` limbs, one limb
+    after the other from the top, each as div_last_rounded divides: bitwise
+    `count` such divisions of each half. A CUDA tensor in the CKKS flavour
+    (plain_modulus None) runs ModDown (csrc/basecnv.cu): K2, the lift, K1
+    and the apply, one chain for up to kernels.MODDOWN_MAX_COUNT limbs, its
+    plain twin moddown_plain; the BGV flavour and CPU tensors run the loop
+    of div_last_rounded on both halves stacked, whose INTT/NTT kernels see
+    twice the rows and half the launches."""
+    global PLAIN_DIVISIONS_ON_CARD
+    if a.limb_ids != b.limb_ids or a.form != b.form or a.data.shape != b.data.shape:
+        raise ValueError("pair must share limbs, form and shape")
+    if not 0 <= count < a.limb_count:
+        raise ValueError(f"cannot drop {count} of {a.limb_count} limbs")
+    if a.data.is_cuda and plain_modulus is None:
+        if a.form != NTT:
+            raise ValueError("div_last_rounded expects NTT form")
+        while count:
+            step = min(count, kernels.MODDOWN_MAX_COUNT)
+            a, b = _moddown_card(ctx, a, b, step)
+            count -= step
+        return a, b
+    if a.data.is_cuda:
+        PLAIN_DIVISIONS_ON_CARD += count
+    for _ in range(count):
+        out = div_last_rounded(ctx, RnsPoly(torch.stack([a.data, b.data]), a.form, a.limb_ids),
+                               plain_modulus, restore_plain_scale)
+        a, b = (RnsPoly(out.data[h], out.form, out.limb_ids) for h in range(2))
+    return a, b
+
+
+@functools.lru_cache(maxsize=None)
+def moddown_tables(ctx: Context, ids: Tuple[int, ...], count: int, device: str) -> torch.Tensor:
+    """The constants of ModDown (csrc/basecnv.cu), the division by the last
+    `count` limbs of `ids` one after the other from the top, as int32 bits
+    of uint32 words [len(ids), 1 + count, 4] on `device`, made once per
+    (limbs, count, device): per limb i (q_i, 2 q_i, floor(2^32 / q_i) — the
+    Shoup word of 1 — and 0); then per step k (k = 0 drops the last limb, k
+    = 1 the one below it ...) while limb i lies below the limb e the step
+    drops, (q_i - q_e mod q_i) mod q_i, q_e^-1 mod q_i and its Shoup word,
+    and 1 where the step takes div_last_rounded's uniform-width branch (q_e
+    below twice every limb it keeps), zeros after."""
+    mods = [int(m) for m in ctx.moduli_of(ids)]
+    tab = np.zeros((len(mods), 1 + count, 4), np.uint64)
+    for i, q in enumerate(mods):
+        tab[i, 0, :3] = (q, 2 * q, hm.shoup(1, q))
+    for k in range(count):
+        e = len(mods) - 1 - k
+        q_e = mods[e]
+        uniform = int(q_e < 2 * min(mods[:e]))
+        for i, q in enumerate(mods[:e]):
+            w = hm.modinv(q_e % q, q)
+            tab[i, 1 + k] = ((q - q_e % q) % q, w, hm.shoup(w, q), uniform)
+    return torch.from_numpy(tab.astype(np.uint32).view(np.int32)).to(device)
+
+
+def _moddown_card(ctx: Context, a: RnsPoly, b: RnsPoly, count: int) -> Tuple[RnsPoly, RnsPoly]:
+    """ModDown on CUDA tensors, count <= kernels.MODDOWN_MAX_COUNT: K2 on the
+    dropped limbs of both halves (copied to int32 beside each other), the
+    lift, K1 on its remainders, the apply."""
+    ids = a.limb_ids
+    *batch, limbs, n = a.data.shape
+    L = limbs - count
+    dev = a.data.device
+    tab = moddown_tables(ctx, ids, count, str(dev))
+    x0, x1 = (h.data.reshape(-1, limbs, n).contiguous() for h in (a, b))
+    R = x0.shape[0]
+    low = torch.empty((2, R, count, n), dtype=torch.int32, device=dev)
+    low[0].copy_(x0[:, L:])
+    low[1].copy_(x1[:, L:])
+    low = nttmod.transform_bits(low, nttmod.limb_rows(ctx, ids[L:]), inverse=True)
+    r_hat = nttmod.transform_bits(kernels.moddown_lift(low.view(2 * R, count, n), tab, L),
+                                  nttmod.limb_rows(ctx, ids[:L]))
+    out = kernels.moddown_apply(x0, x1, r_hat, tab).view(2, *batch, L, n)
+    return RnsPoly(out[0], NTT, ids[:L]), RnsPoly(out[1], NTT, ids[:L])
+
+
+def _centred(v, lim, st, half):
+    """div_last_rounded's step 2 on v (the strict coefficients of the limb a
+    step drops, half = floor(q_e / 2)) under limbs of records lim [..., 4,
+    1] (q, 2q, the Shoup word of 1) at a step of records st [..., 4, 1]:
+    v mod q, then the correction where v >= half."""
+    q = lim[..., 0, :]
+    if int(st[..., 3, :].reshape(-1)[0]):
+        m = ma.reduce_strict(v, q)
+    else:
+        m = ma.reduce_strict(ma.shoup_mul_lazy(v, 1, lim[..., 2, :], q), q)
+    return m + torch.where(v >= half, st[..., 0, :], 0)
+
+
+def moddown_plain(ctx: Context, a: RnsPoly, b: RnsPoly, count: int) -> Tuple[RnsPoly, RnsPoly]:
+    """ModDown's plain twin: the kernels' arithmetic in PyTorch, reading
+    their table (moddown_tables), with the transforms of ops.ntt on the
+    data's device (K1/K2 on the card). Both halves divided by their last
+    `count` limbs (count <= kernels.MODDOWN_MAX_COUNT): bitwise `count`
+    div_last_rounded_pair calls."""
+    ids = a.limb_ids
+    L = len(ids) - count
+    t = nttmod.from_u32_bits(moddown_tables(ctx, ids, count, str(a.data.device)))[..., None]
+    lim, st = t[:, 0], t[:, 1:]  # [L + count, 4, 1], [L + count, count, 4, 1]
+    low = nttmod.intt(ctx, torch.stack([a.data[..., L:, :], b.data[..., L:, :]]), ids[L:])
+    # u[p]: the dropped limb p from the top (limb L + count - 1 - p), strict;
+    # step k drops u[k], then moves every lower one in coefficient form
+    top = [L + count - 1 - p for p in range(count)]
+    u = [ma.reduce_strict(low[..., i - L, :], lim[i, 0]) for i in top]
+    half = [lim[i, 0] >> 1 for i in top]
+    for k in range(count):
+        for p in range(k + 1, count):
+            i = top[p]
+            r = _centred(u[k], lim[i], st[i, k], half[k])
+            diff = ma.sub_lazy(u[p], r, lim[i, 1])
+            u[p] = ma.reduce_strict(ma.shoup_mul_lazy(diff, st[i, k, 1], st[i, k, 2], lim[i, 0]),
+                                    lim[i, 0])
+    r = torch.stack([_centred(u[k][..., None, :], lim[:L], st[:L, k], half[k])
+                     for k in range(count)], dim=-3)  # [2, *batch, count, L, n]
+    r_hat = nttmod.ntt(ctx, r, ids[:L])
+    x = torch.stack([a.data[..., :L, :], b.data[..., :L, :]])
+    for k in range(count):
+        x = ma.shoup_mul_lazy(ma.sub_lazy(x, r_hat[..., k, :, :], lim[:L, 1]), st[:L, k, 1],
+                              st[:L, k, 2], lim[:L, 0])
+    return RnsPoly(x[0], NTT, ids[:L]), RnsPoly(x[1], NTT, ids[:L])
 
 
 # ---------------------------------------------------------------------------

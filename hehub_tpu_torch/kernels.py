@@ -15,7 +15,9 @@ its rows in `LAUNCH_ROWS`. They are called by the wrappers `ops.ntt.ntt` /
 (the stage kernel, also behind parallel/ntt_sharded.py's cross stages),
 `rlwe.rgsw.ext_prod` (K3 at alpha=1, K4 at alpha>1 after ModUp, the
 digits' base conversion; K4 on parts of MAX_ROW_N after the stage kernel
-above it) and `ops.fft.fft` (K5; above MAX_FFT_M K5 on parts, then the FFT
+above it), `core.basecnv.div_last_rounded_many` (ModDown's lift and apply
+around K2 and K1: the division by the dropped limbs of a key switch or a
+rescale) and `ops.fft.fft` (K5; above MAX_FFT_M K5 on parts, then the FFT
 stage kernel F), which hold the plain PyTorch versions beside them.
 `mark` launches a marker (csrc/marker.cu: empty kernels, each under the
 name of a stage of the bootstrap, circuits/bootstrap.MARKERS).
@@ -49,9 +51,10 @@ SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu", "basecnv":
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
     "ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0, "ext_prod_conv": 0, "fft": 0, "ntt_stage": 0,
-    "fft_stage": 0, "modup": 0,
+    "fft_stage": 0, "modup": 0, "moddown_lift": 0, "moddown_apply": 0,
 }
-# the same launches by their rows ({rows: launches}; R for the external products and ModUp)
+# the same launches by their rows ({rows: launches}; R for the external products, ModUp and
+# ModDown)
 LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
 
 # the rows one launch of K1-K4 takes: every power of two from 8 to
@@ -79,6 +82,14 @@ MAX_N = 1 << 23
 MIN_FFT_M, MAX_FFT_M = MIN_N // 2, MAX_ROW_N // 2
 # the largest digit group ModUp takes (csrc/basecnv.cu's kMaxAlpha)
 MODUP_MAX_ALPHA = 16
+# the most limbs one ModDown chain divides by (csrc/basecnv.cu's kMaxCount)
+MODDOWN_MAX_COUNT = 8
+# ModDown's lift splits the remaining limbs into groups (an item each, each
+# re-reading its dropped limbs) until it has about this many items, so
+# that a small batch still fills the card; a group keeps at least
+# MODDOWN_MIN_GROUP limbs
+MODDOWN_LIFT_ITEMS = 1 << 19
+MODDOWN_MIN_GROUP = 4
 
 
 def reset_launch_counts() -> None:
@@ -177,6 +188,8 @@ _ARGTYPES = {
     },
     "basecnv": {
         "hh_modup": [_P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P],
+        "hh_moddown_lift": [_P, _P, _P, _LL, _I, _I, _I, _I, _P],
+        "hh_moddown_apply": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
     },
     "marker": {
         "hh_boot_mark": [_I, _P],
@@ -472,6 +485,84 @@ def modup(src: torch.Tensor, src_tab: torch.Tensor, dst_tab: torch.Tensor,
                               dst_tab.shape[2] // 4, _stream(dev))
         _check_rc(lib, rc, "modup")
         _count("modup", R)
+    return out
+
+
+def _moddown_tab(tab: torch.Tensor, L: int, count: int, device: torch.device) -> None:
+    if not 1 <= count <= MODDOWN_MAX_COUNT:
+        raise ValueError(f"ModDown divides by 1 to {MODDOWN_MAX_COUNT} limbs a chain, got {count}")
+    _require(tab, "tab", device, (L + count, 1 + count, 4))
+
+
+def moddown_lift(low: torch.Tensor, tab: torch.Tensor, L: int) -> torch.Tensor:
+    """ModDown's lift: from K2's output on the dropped limbs, the centred
+    remainders of every step under every remaining limb, in one launch.
+
+    low: [2R, count, n] int32 bits of the dropped limbs in coefficient
+    form (lazy; the first half's R rows, then the second's), contiguous;
+    tab: core.basecnv.moddown_tables of the L remaining and `count` dropped
+    limbs. Returns int32 bits [2R, count, L, n]: r_kj lazy in [0, 2 q_j),
+    bitwise the r of step k of div_last_rounded under limb j
+    (core.basecnv.moddown_plain is its plain twin)."""
+    dev = low.device
+    if low.dim() != 3 or low.shape[0] % 2:
+        raise ValueError(f"moddown_lift takes low [2R, count, n], got {tuple(low.shape)}")
+    rows, count, n = low.shape
+    if n & (n - 1) or not MIN_N <= n <= MAX_N:
+        raise ValueError(f"moddown_lift takes n a power of two in [{MIN_N}, {MAX_N}], got {n}")
+    _require(low, "low", dev)
+    _moddown_tab(tab, L, count, dev)
+    out = torch.empty((rows, count, L, n), dtype=torch.int32, device=dev)
+    n4 = n // 4
+    groups = max(1, min(-(-L // MODDOWN_MIN_GROUP), -(-MODDOWN_LIFT_ITEMS // max(1, rows * n4))))
+    group = -(-L // groups)
+    if rows:
+        lib = _lib("basecnv")
+        with torch.cuda.device(dev):
+            rc = lib.hh_moddown_lift(low.data_ptr(), out.data_ptr(), tab.data_ptr(), rows, L,
+                                     count, group, n.bit_length() - 3, _stream(dev))
+        _check_rc(lib, rc, "moddown_lift")
+        _count("moddown_lift", rows // 2)
+    return out
+
+
+def moddown_apply(a: torch.Tensor, b: torch.Tensor, rhat: torch.Tensor,
+                  tab: torch.Tensor) -> torch.Tensor:
+    """ModDown's apply: each remaining limb of both halves minus the NTT of
+    each step's remainder, times that step's q_e^-1, the steps in order, in
+    one launch.
+
+    a, b: [R, L + count, n] int64 lazy residues in NTT form (the low 32 bits
+    are read), contiguous; rhat: [2R, count, L, n] int32 bits, K1's output
+    on moddown_lift's (rows 0 .. R-1 a's, then b's); tab: as moddown_lift's.
+    Returns int64 [2, R, L, n], lazy in [0, 2 q_j): bitwise `count`
+    successive div_last_rounded steps on each half."""
+    dev = a.device
+    if a.dim() != 3 or tuple(b.shape) != tuple(a.shape):
+        raise ValueError(f"moddown_apply takes a and b [R, L + count, n] of one shape, got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    R, limbs, n = a.shape
+    if rhat.dim() != 4 or rhat.shape[0] != 2 * R or rhat.shape[3] != n:
+        raise ValueError(f"rhat {tuple(rhat.shape)} does not fit the pair {tuple(a.shape)}")
+    count, L = rhat.shape[1], rhat.shape[2]
+    if L + count != limbs or n & (n - 1) or not MIN_N <= n <= MAX_N:
+        raise ValueError(f"rhat {tuple(rhat.shape)} does not fit the pair {tuple(a.shape)}")
+    _require(a, "a", dev, dtype=torch.int64)
+    _require(b, "b", dev, dtype=torch.int64)
+    _require(rhat, "rhat", dev)
+    _moddown_tab(tab, L, count, dev)
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("a and b must start 16-byte aligned (ModDown loads them as 16-byte "
+                         "vectors)")
+    out = torch.empty((2, R, L, n), dtype=torch.int64, device=dev)
+    if R:
+        lib = _lib("basecnv")
+        with torch.cuda.device(dev):
+            rc = lib.hh_moddown_apply(a.data_ptr(), b.data_ptr(), rhat.data_ptr(),
+                                      out.data_ptr(), tab.data_ptr(), R, L, count,
+                                      n.bit_length() - 3, _stream(dev))
+        _check_rc(lib, rc, "moddown_apply")
+        _count("moddown_apply", R)
     return out
 
 

@@ -482,9 +482,7 @@ def mult_low_level(ctx, ct1: CkksCt, ct2: CkksCt) -> CkksQuadCt:
 def _div_special(ctx, d0: RnsPoly, d1: RnsPoly):
     """Both halves from the extended limbs back to the ciphertext limbs:
     the special-prime division(s), with rounding."""
-    for _ in range(ctx.num_special):
-        d0, d1 = basecnv.div_last_rounded_pair(ctx, d0, d1)
-    return d0, d1
+    return basecnv.div_last_rounded_many(ctx, d0, d1, ctx.num_special)
 
 
 def _key_switch(ctx, poly: RnsPoly, ksk: rgsw_mod.RgswCt):
@@ -507,11 +505,11 @@ def mult(ctx, ct1: CkksCt, ct2: CkksCt, rlk: rgsw_mod.RgswCt) -> CkksCt:
 def rescale(ctx, ct: CkksCt, dropping_primes: int = 1) -> CkksCt:
     """Drop trailing ciphertext primes with exact rounding, dividing the
     scaling factor."""
-    c0, c1, scale = ct.c0, ct.c1, ct.scaling_factor
-    for _ in range(dropping_primes):
-        q_last = ctx.mod_list[c0.limb_ids[-1]]
-        c0, c1 = basecnv.div_last_rounded_pair(ctx, c0, c1)
-        scale /= q_last
+    ids = ct.c0.limb_ids
+    c0, c1 = basecnv.div_last_rounded_many(ctx, ct.c0, ct.c1, dropping_primes)
+    scale = ct.scaling_factor
+    for i in reversed(ids[len(ids) - dropping_primes:]):
+        scale /= ctx.mod_list[i]
     return CkksCt(c0, c1, scale)
 
 

@@ -345,18 +345,7 @@ def transform(data, rows, inverse: bool = False, fold: bool = True):
     dev = data.device
     n = data.shape[-1]
     if dev.type == "cuda":
-        if n > kernels.MAX_N:
-            raise ValueError(f"the NTT on the card takes n up to {kernels.MAX_N}, got {n}")
-        x = to_u32_bits(data)
-        if n > kernels.MAX_ROW_N:
-            return from_u32_bits(_staged(x, rows, inverse, fold, on_card=True))
-        names = INV_TABLES if inverse else FWD_TABLES
-        if n > kernels.NTT_SUB_N:
-            names = _split_tables(names, kernels.NTT_SUB_N)
-        if inverse and not fold:
-            names = names[:4]
-        kernel = kernels.ntt_inv if inverse else kernels.ntt_fwd
-        return from_u32_bits(kernel(x, *(rows(nm, dev, torch.int32) for nm in names)))
+        return from_u32_bits(transform_bits(to_u32_bits(data), rows, inverse, fold))
     if dev.type != "cpu":
         raise ValueError(f"no NTT for tensors on {dev}")
     if not inverse:
@@ -366,7 +355,27 @@ def transform(data, rows, inverse: bool = False, fold: bool = True):
     return _inv_stages(data, tw, tw_sh, q, two_q, last or None, range(n.bit_length() - 1))
 
 
-def _limb_rows(ctx, limb_ids):
+def transform_bits(x, rows, inverse: bool = False, fold: bool = True):
+    """transform on the card, on and to the kernels' int32 bits: x [..., L,
+    n] contiguous int32 (lazy residues; above kernels.MAX_ROW_N the forward
+    transform runs its first stages on x in place)."""
+    dev = x.device
+    n = x.shape[-1]
+    if n > kernels.MAX_N:
+        raise ValueError(f"the NTT on the card takes n up to {kernels.MAX_N}, got {n}")
+    if n > kernels.MAX_ROW_N:
+        return _staged(x, rows, inverse, fold, on_card=True)
+    names = INV_TABLES if inverse else FWD_TABLES
+    if n > kernels.NTT_SUB_N:
+        names = _split_tables(names, kernels.NTT_SUB_N)
+    if inverse and not fold:
+        names = names[:4]
+    kernel = kernels.ntt_inv if inverse else kernels.ntt_fwd
+    return kernel(x, *(rows(nm, dev, torch.int32) for nm in names))
+
+
+def limb_rows(ctx, limb_ids):
+    """The table provider of transform for the context limbs `limb_ids`."""
     return lambda nm, dev, dtype: ctx.device_rows(nm, limb_ids, dev, dtype)
 
 
@@ -374,14 +383,14 @@ def ntt(ctx, data, limb_ids: Tuple[int, ...]):
     """Forward NTT of [..., L, n] under the context limbs `limb_ids`: the
     K1 kernel for a CUDA tensor (with the stage kernel above
     kernels.MAX_ROW_N), the plain chain for a CPU tensor."""
-    return transform(data, _limb_rows(ctx, limb_ids))
+    return transform(data, limb_rows(ctx, limb_ids))
 
 
 def intt(ctx, data, limb_ids: Tuple[int, ...]):
     """Inverse NTT of [..., L, n] under the context limbs `limb_ids`: the
     K2 kernel for a CUDA tensor (with the stage kernel above
     kernels.MAX_ROW_N), the plain chain for a CPU tensor."""
-    return transform(data, _limb_rows(ctx, limb_ids), inverse=True)
+    return transform(data, limb_rows(ctx, limb_ids), inverse=True)
 
 
 def ntt_single(tables, data):

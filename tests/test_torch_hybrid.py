@@ -5,12 +5,16 @@ then ext_prod, mult + relin + rescale, rotate(3), conjugate and a level
 that cuts a digit group, all bitwise; the port's own alpha=2 keys; ModUp's
 packed constant table (basecnv.modup_tables), through its plain twin
 basecnv.modup_plain, bitwise base_convert at alpha 2, 3, 4 and every
-ragged last group, built once; and, on the card, the kernel K4 bitwise
+ragged last group, built once; ModDown's plain twin basecnv.moddown_plain
+bitwise count successive div_last_rounded_pair calls and hehub_tpu's
+division repeated; and, on the card, the kernel K4 bitwise
 against its plain version at every n it takes, and ModUp (kernels.modup)
 bitwise the plain base_convert per group at both benchmark cells' shapes,
 a ring below 1024 and n = 262144 by parts, ext_prod_strict against the
 CPU, one ModUp launch per CKKS mult and no base_convert on the card, and
-a key made on the card refused above ModUp's largest digit group.
+a key made on the card refused above ModUp's largest digit group;
+ModDown's kernels bitwise moddown_plain at the cells' shapes, in a CUDA
+graph, and no plain division on the card through the CKKS operations.
 
 JAX is imported inside the tests that use it, so the card test also runs
 where JAX is not installed."""
@@ -30,6 +34,7 @@ from hehub_tpu_torch.models import ckks as tckks
 from hehub_tpu_torch.rlwe import keys as tkeys
 from hehub_tpu_torch.rlwe import rgsw as trgsw
 from hehub_tpu_torch.rlwe import rlwe as trlwe
+from hehub_tpu_torch.utils import hostmath as hm
 from tests.torch_support import (  # noqa: F401
     as_numpy, cuda_device, ext_prod_case, lazy_residues, plain_ext_prod_conv)
 
@@ -412,3 +417,186 @@ def test_ksk_gen_alpha_above_modup_raises_on_card(cuda_device):  # noqa: F811
     sk = trlwe.keygen(ctx, gen)
     with pytest.raises(ValueError, match="ModUp"):
         tkeys.relin_key(ctx, sk, gen, alpha=alpha)
+
+
+# ---------------------------------------------------------------------------
+# ModDown: the division by several dropped limbs, its plain twin and kernels
+# ---------------------------------------------------------------------------
+
+MODDOWN_N = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _moddown_chain(n, count, mixed, chain=3):
+    """Moduli of `chain` kept limbs and `count` dropped ones at ring n.
+    mixed: kept limbs of 30 and 24 bits and, above them, a 24-bit dropped
+    limb under 30-bit ones, so that dropping a 30-bit limb takes
+    div_last_rounded's mixed-width branch (q_e >= 2 min q_j) under the kept
+    limbs and in the walk over the lower dropped ones, and dropping the
+    24-bit one the uniform-width branch; else every limb of 30 bits."""
+    p30 = list(hm.gen_ntt_primes(30, chain + count, n))
+    if not mixed:
+        return tuple(p30)
+    p24 = list(hm.gen_ntt_primes(24, 2, n))
+    kept = [p30[0], p24[0]] + p30[1:chain - 1]
+    dropped = [p24[1]] + p30[chain - 1:chain - 2 + count] if count > 1 else [p30[chain - 1]]
+    return tuple(kept + dropped)
+
+
+def _moddown_ctx(mods, n):
+    return tctx.make_context(tctx.CkksParams(dimension=n, moduli=mods,
+                                             special_mod=hm.gen_ntt_primes(29, 1, n)[0]))
+
+
+@pytest.mark.parametrize("batch", [(), (3,), (2, 2)])
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+def test_moddown_plain_matches_division_loop(count, mixed, batch):
+    """ModDown's plain twin on its packed table, K2 and K1's plain chains
+    around it, divides both halves by their last `count` limbs bitwise as
+    `count` successive div_last_rounded_pair calls do (the loop the CPU
+    and the BGV flavour keep), through both branches of the centred
+    remainder; at batch (3,) also bitwise hehub_tpu's division repeated."""
+    mods = _moddown_chain(MODDOWN_N, count, mixed)
+    ctx = _moddown_ctx(mods, MODDOWN_N)
+    ids = tuple(range(len(mods)))
+    rng = np.random.default_rng(31 * count + 7 * mixed + len(batch))
+    a, b = (lazy_residues(rng, batch, mods, MODDOWN_N) for _ in range(2))
+    pa, pb = (convert.poly_from_numpy(x, trns.NTT, ids, device="cpu") for x in (a, b))
+    tab = tbc.moddown_tables(ctx, ids, count, "cpu")
+    assert tab.dtype == torch.int32 and tab.shape == (len(ids), 1 + count, 4)
+    got0, got1 = tbc.moddown_plain(ctx, pa, pb, count)
+    want0, want1 = pa, pb
+    for _ in range(count):
+        want0, want1 = tbc.div_last_rounded_pair(ctx, want0, want1)
+    assert got0.limb_ids == want0.limb_ids == ids[:-count]
+    assert got0.data.shape == (*batch, len(ids) - count, MODDOWN_N)
+    assert torch.equal(got0.data, want0.data) and torch.equal(got1.data, want1.data)
+    if batch != (3,):
+        return
+    import jax
+
+    from hehub_tpu.core import basecnv as jbc
+    from hehub_tpu.core import context as jcx
+    from hehub_tpu.core import rns as jrns
+
+    jctx = jcx.make_context(jcx.CkksParams(dimension=MODDOWN_N, moduli=mods,
+                                           special_mod=hm.gen_ntt_primes(29, 1, MODDOWN_N)[0]))
+
+    @jax.jit
+    def jax_div(x, y):
+        c0, c1 = jrns.RnsPoly(x, jrns.NTT, ids), jrns.RnsPoly(y, jrns.NTT, ids)
+        for _ in range(count):
+            c0, c1 = jbc.div_last_rounded_pair(jctx, c0, c1)
+        return c0.data, c1.data
+
+    jax0, jax1 = jax_div(a, b)
+    np.testing.assert_array_equal(as_numpy(got0.data), np.asarray(jax0))
+    np.testing.assert_array_equal(as_numpy(got1.data), np.asarray(jax1))
+
+
+def _pair_on_card(ctx, ids, batch, n, dev, seed):
+    """Two lazy NTT-form halves [*batch, len(ids), n] made on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    two_q = 2 * torch.tensor(ctx.moduli_of(ids), dtype=torch.int64, device=dev)[:, None]
+    return tuple(trns.RnsPoly(torch.randint(0, 1 << 62, (*batch, len(ids), n), generator=gen,
+                                            device=dev) % two_q, trns.NTT, ids)
+                 for _ in range(2))
+
+
+# (n, kept limbs, dropped limbs, batch, mixed widths): std128's top level
+# (12 + 2, R = 64), deep65536's (54 + 4, R = 8), a rescale of each (one
+# limb), the boot set's key switch at its top level (47 + 4, batch 1), a
+# mixed-width chain, a ring below 1024, and n = 262144 (K1 and K2 by parts)
+MODDOWN_CARD_CASES = [
+    (16384, 12, 2, (64,), False), (65536, 54, 4, (8,), False), (16384, 11, 1, (64,), False),
+    (65536, 53, 1, (8,), False), (65536, 47, 4, (1,), False), (16384, 6, 3, (2, 3), True),
+    (256, 4, 8, (), False), (262144, 5, 2, (2,), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,L,count,batch,mixed", MODDOWN_CARD_CASES)
+def test_moddown_kernels_match_plain_on_card(cuda_device, n, L, count, batch, mixed):  # noqa: F811
+    """div_last_rounded_many on the card (K2, ModDown's lift, K1, its
+    apply: one launch each) bitwise moddown_plain on the same card, with no
+    division by the plain loop."""
+    mods = (_moddown_chain(n, count, True, L) if mixed
+            else tuple(hm.gen_ntt_primes(30, L + count, n)))
+    ctx = _moddown_ctx(mods, n)
+    ids = tuple(range(L + count))
+    a, b = _pair_on_card(ctx, ids, batch, n, cuda_device, n + L + count)
+    before, plain_before = dict(kernels.LAUNCHES), tbc.PLAIN_DIVISIONS_ON_CARD
+    got0, got1 = tbc.div_last_rounded_many(ctx, a, b, count)
+    torch.cuda.synchronize()
+    for kind in ("moddown_lift", "moddown_apply"):
+        assert kernels.LAUNCHES[kind] == before[kind] + 1
+    if n <= kernels.MAX_ROW_N:
+        for kind in ("ntt_fwd", "ntt_inv"):
+            assert kernels.LAUNCHES[kind] == before[kind] + 1
+    assert tbc.PLAIN_DIVISIONS_ON_CARD == plain_before
+    want0, want1 = tbc.moddown_plain(ctx, a, b, count)
+    assert got0.limb_ids == want0.limb_ids == ids[:L]
+    assert torch.equal(got0.data, want0.data) and torch.equal(got1.data, want1.data)
+
+
+@pytest.mark.cuda
+def test_moddown_in_cuda_graph_on_card(cuda_device):  # noqa: F811
+    """ModDown captured in a CUDA graph (its table built by an eager call
+    before) replays bitwise the eager division on new inputs."""
+    n, L, count, batch = 16384, 12, 2, (8,)
+    ctx = _moddown_ctx(tuple(hm.gen_ntt_primes(30, L + count, n)), n)
+    ids = tuple(range(L + count))
+    a, b = _pair_on_card(ctx, ids, batch, n, cuda_device, 1)
+    tbc.div_last_rounded_many(ctx, a, b, count)
+    static = [a.data.clone(), b.data.clone()]
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        tbc.div_last_rounded_many(ctx, *(trns.RnsPoly(x, trns.NTT, ids) for x in static), count)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tbc.div_last_rounded_many(ctx, *(trns.RnsPoly(x, trns.NTT, ids) for x in static),
+                                        count)
+    for seed in (2, 3):
+        c, d = _pair_on_card(ctx, ids, batch, n, cuda_device, seed)
+        static[0].copy_(c.data)
+        static[1].copy_(d.data)
+        graph.replay()
+        want = tbc.div_last_rounded_many(ctx, c, d, count)
+        torch.cuda.synchronize()
+        assert torch.equal(out[0].data, want[0].data) and torch.equal(out[1].data, want[1].data)
+
+
+@pytest.mark.cuda
+def test_ckks_ops_divide_without_plain_loop_on_card(cuda_device):  # noqa: F811
+    """mult (+ relinearize), rotate, rescale and hoisted_rotations at
+    alpha=2 on the card run every division through ModDown (the plain-loop
+    counter stays 0), and give bitwise the CPU's results (the loop there)."""
+    params, ctx = _port()
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    sk = trlwe.keygen(ctx, gen)
+    rlk = tkeys.relin_key(ctx, sk, gen, alpha=2)
+    rks = {s: tkeys.rot_key(ctx, sk, s, gen, alpha=2) for s in (1, 3)}
+    a, b = (tckks.encrypt(ctx, tckks.encode(RNG.uniform(-1, 1, (2, N // 2)), params,
+                                            device=cuda_device), sk, gen) for _ in range(2))
+
+    def ops(a, b, rlk, rks):
+        prod = tckks.mult(ctx, a, b, rlk)
+        hoisted = tckks.hoisted_rotations(ctx, a, rks, sorted(rks))
+        return [tckks.rescale(ctx, prod), tckks.rotate(ctx, a, rks[1], 1), *hoisted.values()]
+
+    plain_before, lifts = tbc.PLAIN_DIVISIONS_ON_CARD, kernels.LAUNCHES["moddown_lift"]
+    card = ops(a, b, rlk, rks)
+    torch.cuda.synchronize()
+    assert tbc.PLAIN_DIVISIONS_ON_CARD == plain_before
+    assert kernels.LAUNCHES["moddown_lift"] == lifts + 5
+    on_cpu = lambda ct: tckks.CkksCt(  # noqa: E731
+        trns.RnsPoly(ct.c0.data.cpu(), ct.c0.form, ct.c0.limb_ids),
+        trns.RnsPoly(ct.c1.data.cpu(), ct.c1.form, ct.c1.limb_ids), ct.scaling_factor)
+    key_on_cpu = lambda k: trgsw.RgswCt(k.data.cpu(), k.limb_ids, k.alpha)  # noqa: E731
+    cpu = ops(on_cpu(a), on_cpu(b), key_on_cpu(rlk), {s: key_on_cpu(k) for s, k in rks.items()})
+    for got, want in zip(card, cpu):
+        assert got.c0.limb_ids == want.c0.limb_ids and got.scaling_factor == want.scaling_factor
+        assert torch.equal(got.c0.data.cpu(), want.c0.data)
+        assert torch.equal(got.c1.data.cpu(), want.c1.data)
