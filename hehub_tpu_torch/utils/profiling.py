@@ -7,11 +7,10 @@ the time per call inside kernels, from a torch.profiler trace: this
 package's kernels, or a library call's. `step_time` (and the reference's
 `time_op`, the same over `fn(*args)`) is the host clock around calls that
 end in `torch.cuda.synchronize()`, for work whose host part counts too (the
-host codec). `device_trace` traces one call with torch.profiler and reports
-how long the device was busy in it and with what; `trace` writes a
-torch.profiler trace of a block as a Chrome trace; `op_counters` reads the
-caching allocator's statistics. All of these refuse to run without a CUDA
-device: there is no CPU number under a device metric's name.
+host codec). `trace` writes a torch.profiler trace of a block as a Chrome
+trace; `op_counters` reads the caching allocator's statistics. All of these
+refuse to run without a CUDA device: there is no CPU number under a device
+metric's name.
 
 `Roofline`, `ntt_roofline` and `modmul_roofline` turn a time into achieved
 bytes/s and integer operations/s with the reference's counts, so that their
@@ -283,47 +282,3 @@ def kernel_time(fn: Callable[[], object], ours: bool, warmup: int = 2, iters: in
             return total / 1e6
     raise ProfilerFault(f"{fault} in each of 3 traces")
 
-
-def _activity(name: str) -> str:
-    """The class of a device activity: a copy, one of this package's
-    kernels (by its function name: csrc/ keeps them in an anonymous
-    namespace at top level), or a kernel of PyTorch (in at:: and others)."""
-    if name.startswith(("Memcpy", "Memset")):
-        return "copies"
-    if _is_ours(name):
-        return name.removeprefix("void ")[len(_OURS):].split("(")[0].split("<")[0]
-    return "pytorch kernels"
-
-
-def device_trace(fn: Callable[[], object]) -> Dict[str, object]:
-    """One call of `fn()` (after one warm-up call) under torch.profiler:
-    host wall ms of the call (ending in a device sync; the profiler's own
-    overhead included), device busy ms (the union of the kernel and copy
-    intervals on the device), the idle share 1 − busy / wall, and the
-    split of the device time over copies, this package's kernels and
-    PyTorch's kernels, as shares, and the number of activities of each
-    class (`launches`; a CUDA graph's kernels count each). Busy and idle
-    are None when the trace holds no device activity (the profiler could
-    not trace the card)."""
-    _require_cuda()
-    fn()
-    wall, spans = _traced_window(fn)
-    spans = [s for s in spans if s[1] > s[0]]
-    if not spans:
-        return dict(wall_ms=wall * 1e3, busy_ms=None, idle_share=None, split={}, launches={})
-    by_class: Dict[str, float] = collections.defaultdict(float)
-    counts: Dict[str, int] = collections.Counter()
-    busy_us, end = 0.0, float("-inf")
-    for start, stop, name in spans:
-        by_class[_activity(name)] += stop - start
-        counts[_activity(name)] += 1
-        busy_us += max(0.0, stop - max(start, end))
-        end = max(end, stop)
-    total = sum(by_class.values())
-    return dict(
-        wall_ms=wall * 1e3,
-        busy_ms=busy_us / 1e3,
-        idle_share=1.0 - busy_us / 1e3 / (wall * 1e3),
-        split={k: v / total for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])},
-        launches=dict(counts),
-    )

@@ -7,7 +7,9 @@ signed single lift on random residues; SIMD packing under a 17-bit, a
 device decryption and every homomorphic op on ciphertexts and keys made by
 hehub_tpu, carried over with `convert` — all bitwise; and a round trip on
 the port's own keys and sampling. On the card, ntt_single / intt_single
-through K1/K2 bitwise against their plain chains.
+through K1/K2 bitwise against their plain chains, and the homomorphic steps
+at alpha=1 and alpha=2 on keys made there, at n=256 and n=16384, exact
+against numpy and bitwise against the same steps on the CPU.
 
 hehub_tpu runs its NTTs, external products and divisions jitted
 (torch_support.jit_reference_ops). JAX is imported inside the tests that
@@ -28,7 +30,8 @@ from hehub_tpu_torch.ops import ntt as tn
 from hehub_tpu_torch.rlwe import keys as tkeys
 from hehub_tpu_torch.rlwe import rlwe as trlwe
 from hehub_tpu_torch.utils import hostmath as thm
-from tests.torch_support import as_numpy, cuda_device, jit_reference_ops, lazy_residues  # noqa: F401
+from tests.torch_support import (as_numpy, cuda_device, jit_reference_ops,  # noqa: F401
+                                 lazy_residues, to_device)
 
 N = 256
 T_BIG = 35184358850561  # the reference's 45-bit prime, ≡ 1 mod 2n for n <= 1024
@@ -212,7 +215,7 @@ def test_bgv_params_and_factor_tables():
                 for nm in ("q", "two_q", "tw_fwd", "tw_fwd_sh", "tw_inv", "tw_inv_sh",
                            "tw_inv_last", "tw_inv_last_sh", "n_inv", "n_inv_sh"):
                     np.testing.assert_array_equal(getattr(mine, nm), getattr(ref, nm))
-    # the full-budget configuration of chip_smoke.py: t = 65537 packs at n=16384
+    # the full 128-bit budget at n=16384 (12 + 2 limbs): t = 65537 packs there
     full = tctx.create_bgv_params(16384, plain_bits=17, num_levels=12, num_special=2)
     assert full.plain_modulus == 65537 and full.simd_capable
     with pytest.raises(ValueError, match="budget"):
@@ -466,3 +469,55 @@ def test_ntt_single_on_card(cuda_device, t, n):  # noqa: F811
         want = fn(tabs, x.cpu())
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,levels,num_special,alpha", [(256, 3, 1, 1), (256, 4, 2, 2),
+                                                        (16384, 12, 2, 2)])
+def test_bgv_steps_on_card_are_cpu(cuda_device, n, levels, num_special, alpha):  # noqa: F811
+    """BGV under the default 17-bit t on the card, keys made there (the
+    relinearization key with noise_scale=t), at n=256 and at the full
+    128-bit budget of n=16384 (12 + 2 limbs, t = 65537): simd_encode +
+    encrypt, add, mult_plain, mult + relinearize and mod_switch each decrypt
+    exactly to numpy's slots mod t, decrypt_device equals decrypt on the
+    fresh ciphertexts, K1, K2 and K3 (alpha=1) or ModUp and K4 (alpha=2)
+    launched, and the same steps on the CPU are bitwise the card's."""
+    from hehub_tpu_torch import kernels
+
+    params = tctx.create_bgv_params(n, num_levels=levels, num_special=num_special,
+                                    use_security_budget=n > N)
+    ctx = tctx.make_context(params)
+    t = params.plain_modulus
+    gen = torch.Generator(device=cuda_device).manual_seed(31 + alpha)
+    a, b, c = (_slots(t, 31 + alpha + i, (2, n)) for i in range(3))
+    kernels.reset_launch_counts()
+    sk = trlwe.keygen(ctx, gen)
+    rlk = tkeys.relin_key(ctx, sk, gen, alpha=alpha, noise_scale=t)
+    pc = tbgv.simd_encode(ctx, c, device=cuda_device)
+    ca, cb = (tbgv.encrypt(ctx, tbgv.simd_encode(ctx, v, device=cuda_device), sk, gen)
+              for v in (a, b))
+    outs = dict(add=tbgv.add(ctx, ca, cb), mult_plain=tbgv.mult_plain(ctx, ca, pc),
+                mult=tbgv.mult(ctx, ca, cb, rlk))
+    outs["mod_switch"] = tbgv.mod_switch(ctx, outs["mult"])
+    torch.cuda.synchronize()
+    switch = ("ext_prod",) if alpha == 1 else ("ext_prod_conv", "modup")
+    for kind in ("ntt_fwd", "ntt_inv") + switch:
+        assert kernels.LAUNCHES[kind] > 0, kind
+    mul = lambda x, y: np.asarray(x.astype(object) * y.astype(object) % t, np.uint64)  # noqa: E731
+    want = dict(add=(a + b) % t, mult_plain=mul(a, c), mult=mul(a, b), mod_switch=mul(a, b))
+    for k, ct in outs.items():
+        np.testing.assert_array_equal(
+            tbgv.simd_decode(ctx, tbgv.decrypt(ctx, ct, sk), device=cuda_device), want[k])
+    for ct in (ca, cb):
+        exact, fast = tbgv.decrypt(ctx, ct, sk), tbgv.decrypt_device(ctx, ct, sk)
+        assert np.array_equal(exact.digits, fast.digits) and np.array_equal(exact.neg, fast.neg)
+    assert outs["mod_switch"].limb_ids == tuple(range(levels - 1))
+
+    ca_c, cb_c, rlk_c = to_device((ca, cb, rlk), "cpu")
+    cpu = dict(add=tbgv.add(ctx, ca_c, cb_c), mult_plain=tbgv.mult_plain(ctx, ca_c, pc),
+               mult=tbgv.mult(ctx, ca_c, cb_c, rlk_c))
+    cpu["mod_switch"] = tbgv.mod_switch(ctx, cpu["mult"])
+    for k, ct in outs.items():
+        assert ct.limb_ids == cpu[k].limb_ids, k
+        assert torch.equal(ct.c0.data.cpu(), cpu[k].c0.data), k
+        assert torch.equal(ct.c1.data.cpu(), cpu[k].c1.data), k

@@ -5,8 +5,9 @@ round trip through both keys decrypts under each secret; the refresh of
 hebench's configuration ckks_boot_n65536_h192 cut to n=256 against the
 plain reference (hebench/reference/ckks_boot.py), both decrypting within
 2^-12 of the input and of each other, with the key switches counted by
-stage. The card test holds the captured refresh bitwise to the eager one
-at the configuration's full size. No JAX here."""
+stage. The card tests hold the captured refresh bitwise to the eager one
+at the configuration's full size, and at n=256 raise_modulus to the CPU's,
+with its launches. No JAX here."""
 
 import dataclasses
 import json
@@ -18,11 +19,13 @@ import torch
 
 from hebench import bounds_boot
 from hebench.reference import ckks_boot as ref_boot
+from hehub_tpu_torch import kernels
 from hehub_tpu_torch.circuits import bootstrap as bs
 from hehub_tpu_torch.core.context import make_context
 from hehub_tpu_torch.models import ckks
 from hehub_tpu_torch.rlwe import keys as keys_mod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
+from tests.torch_support import to_device
 
 CONFIG = json.loads((pathlib.Path(__file__).resolve().parents[1] / "hebench" / "configs"
                      / "ckks_boot_n65536_h192.json").read_text())
@@ -135,3 +138,52 @@ def test_captured_refresh_is_bitwise_eager_at_full_size():
     assert torch.equal(eager.c0.data, captured.c0.data)
     assert torch.equal(eager.c1.data, captured.c1.data)
     assert np.abs(_decode(ctx, params, captured, sk) - v).max() < 2.0**-4
+
+
+@pytest.mark.cuda
+def test_raise_modulus_on_card_is_cpu():
+    """At n=256 on the configuration's chain, keys made on the card: the key
+    into the ephemeral secret lies on q0 and the special primes, and the
+    switch through it decodes there within 2^-12; raise_modulus (SSE in,
+    mod_raise, SSE out) launches ModUp and K4 twice, one of each a switch,
+    and is bitwise the same on the CPU; at the top, rotate_accumulate over
+    two rotations launches ModUp and K4 twice, hoisted rotations one ModUp
+    and no K4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, L, alpha = 256, CONFIG["chain_primes"], CONFIG["alpha"]
+    params, ctx, _, _, sk, sk_eph, gen = _setup(n, L, device="cuda")
+    sse = keys_mod.sse_keys(ctx, sk, sk_eph, gen, alpha=alpha)
+    assert sse[0].limb_ids == (0,) + ctx.special_indices
+    rks = {st: keys_mod.rot_key(ctx, sk, st, gen, alpha=alpha) for st in (1, 5)}
+    v = np.random.default_rng(7).uniform(-1, 1, n // 2)
+    ct = ckks.encrypt(ctx, ckks.encode(v, params, scaling_factor=SCALE_IN, level=L - 1,
+                                       device="cuda"), sk, gen)
+    under_eph = ckks.switch_key(ctx, ct, sse[0])
+    assert np.abs(_decode(ctx, params, under_eph, sk_eph) - v).max() < 2.0**-12
+    booter = bs.Bootstrapper(ctx, params, None, rks, None, CONFIG["k_bound"],
+                             lt_stages=CONFIG["lt_stages"], sse=sse)
+    kernels.reset_launch_counts()
+    raised = booter.raise_modulus(ct)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["modup"] == kernels.LAUNCHES["ext_prod_conv"] == 2
+    assert raised.c0.limb_count == L
+    kernels.reset_launch_counts()
+    summed = ckks.rotate_accumulate(ctx, [(raised, 1), (raised, 5)], rks)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["modup"] == kernels.LAUNCHES["ext_prod_conv"] == 2
+    assert summed.c0.limb_count == L
+    kernels.reset_launch_counts()
+    hoisted = ckks.hoisted_rotations(ctx, raised, rks, sorted(rks))
+    torch.cuda.synchronize()
+    assert len(hoisted) == len(rks)
+    assert kernels.LAUNCHES["modup"] == 1 and kernels.LAUNCHES["ext_prod_conv"] == 0
+    assert kernels.LAUNCHES["ntt_fwd"] >= 1
+
+    cpu = bs.Bootstrapper(ctx, params, None, {}, None, CONFIG["k_bound"],
+                          lt_stages=CONFIG["lt_stages"], sse=to_device(sse, "cpu"))
+    want = cpu.raise_modulus(to_device(ct, "cpu"))
+    assert raised.c0.limb_ids == want.c0.limb_ids
+    assert raised.scaling_factor == want.scaling_factor
+    assert torch.equal(raised.c0.data.cpu(), want.c0.data)
+    assert torch.equal(raised.c1.data.cpu(), want.c1.data)

@@ -9,8 +9,9 @@ same ciphertexts and keys (made by hehub_tpu, carried over with `convert`),
 bitwise in ciphertexts, limbs and scale. Then the port's own
 CompiledBootstrapper (monolithic, split) and boot_artifact round trip
 against the eager refresh, bitwise. On the card: the captured refresh
-bitwise equal to the eager one at n=128 and n=1024, mod_raise bitwise equal
-to the CPU's, and no host synchronisation in a warm eager refresh.
+bitwise equal to the eager one at n=128 and n=1024, mod_raise and the first
+CoeffToSlot pair bitwise equal to the CPU's, and no host synchronisation in
+a warm eager refresh.
 
 hehub_tpu runs its heavy operations jitted (torch_support.jit_reference_ops,
 for the whole module, from the `env` fixture); every stage test enters at
@@ -19,6 +20,7 @@ them, so it reuses the functions that they compiled. JAX is imported
 inside the fixtures that use it, so the card tests also run where JAX is
 not installed."""
 
+import copy
 import os
 import pathlib
 import types
@@ -27,14 +29,14 @@ import numpy as np
 import pytest
 import torch
 
-from hehub_tpu_torch import convert
+from hehub_tpu_torch import convert, kernels
 from hehub_tpu_torch.circuits import boot_artifact
 from hehub_tpu_torch.circuits import bootstrap as bs
 from hehub_tpu_torch.core.context import make_context
 from hehub_tpu_torch.models import ckks
 from hehub_tpu_torch.rlwe import keys as keys_mod
 from hehub_tpu_torch.rlwe import rlwe as rlwe_mod
-from tests.torch_support import as_numpy, cuda_device, jit_reference_ops  # noqa: F401
+from tests.torch_support import as_numpy, cuda_device, jit_reference_ops, to_device  # noqa: F401
 
 N = 128
 SLOTS = N // 2
@@ -358,18 +360,68 @@ def test_captured_refresh_is_eager_on_card(cuda_device, n):
     """n=128: this file's parameters, split; n=1024: the recipe of
     tests/test_bootstrap.py::test_full_bootstrap_1024 (28 limbs of 30 bits
     and 2 special primes, Δ ≈ 2^60, Δ_in = 2^26, degree 63, arcsine), dense
-    transforms, monolithic, decoded within that test's 1e-5."""
+    transforms, monolithic, decoded within that test's 1e-5. K1, K2, K3 and
+    K5 launch in the set-up and refresh, and a second eager refresh makes
+    no plan and gives the same ciphertext; at n=128 a batch of 2 is
+    captured too, bitwise its eager refresh."""
+    kernels.reset_launch_counts()
     if n == 128:
         s = _card_setup(cuda_device, n, LEVELS, False, 1, LT_STAGES, DEGREE, D_IN, False)
     else:
         s = _card_setup(cuda_device, n, 28, True, 2, 0, 63, 2.0**26, True)
     eager = s.booter(s.ct)
+    plans = len(s.booter._plans)
+    assert _same_ct(s.booter(s.ct), eager) and len(s.booter._plans) == plans
+    for kind in ("ntt_fwd", "ntt_inv", "ext_prod", "fft"):
+        assert kernels.LAUNCHES[kind] > 0, kind
     captured = bs.CompiledBootstrapper(s.booter, s.ct, split=n == 128)
     for _ in range(2):  # a replay leaves the next one unchanged
         assert _same_ct(captured(s.ct), eager)
     if n == 1024:
         got = ckks.decode(ckks.decrypt(s.ctx, eager, s.sk), s.params).real
         assert np.abs(got - s.v).max() < 1e-5
+        return
+    v2 = np.random.default_rng(4).uniform(-1, 1, (2, n // 2))
+    ct2 = ckks.encrypt(s.ctx, ckks.encode(v2, s.params, scaling_factor=D_IN, level=LEVELS - 1,
+                                          device=cuda_device),
+                       s.sk, torch.Generator(device=cuda_device).manual_seed(4))
+    eager2 = s.booter(ct2)
+    assert _same_ct(bs.CompiledBootstrapper(s.booter, ct2, split=True)(ct2), eager2)
+
+
+@pytest.mark.cuda
+def test_first_coeff_to_slot_pair_on_card_is_cpu(cuda_device):
+    """mod_raise and the first CoeffToSlot pair (c2sR0 and c2sI0 under one
+    set of hoisted babies) of a ciphertext on the card, bitwise the same on
+    the CPU through the plain versions with the card's keys and plan
+    plaintexts (a strict CPU Bootstrapper: no plan is encoded there)."""
+    s = _card_setup(cuda_device, N, LEVELS, False, 1, LT_STAGES, DEGREE, D_IN, False)
+    booter = s.booter
+    c2s_r, c2s_im, _, _ = bs._merged_chain_matrices(N, LT_STAGES)
+    raised = bs.mod_raise(s.ctx, s.ct)
+    target = raised.scaling_factor * booter._balanced_pt_scale(raised, len(c2s_r))
+    specs = (("c2sR0", c2s_r[0]), ("c2sI0", c2s_im[0]))
+    card = booter._lt_pair(*specs, raised, target)
+    plans = [booter._plan(name, M, raised, target) for name, M in specs]
+    steps = set()
+    for p in plans:
+        for g, b in p.pts:
+            steps |= {(-b) % p.slot_count} if b else set()
+            steps |= {(-g * p.B) % p.slot_count} if g else set()
+    cpu = bs.Bootstrapper(s.ctx, s.params, None,
+                          to_device({st: booter.rot_keys[st] for st in sorted(steps)}, "cpu"),
+                          None, booter.k_bound, booter.degree, booter.arcsine,
+                          booter.double_angle, booter.lt_stages)
+    for (name, _), plan in zip(specs, plans):
+        on_cpu = copy.copy(plan)
+        on_cpu.pts = to_device(plan.pts, "cpu")
+        cpu._plans[(name, raised.c0.limb_count, raised.scaling_factor, target)] = on_cpu
+    cpu._strict = True
+    raised_c = bs.mod_raise(s.ctx, to_device(s.ct, "cpu"))
+    got = cpu._lt_pair(*specs, raised_c, target)
+    for c, k in ((raised_c, raised), *zip(got, card)):
+        assert c.c0.limb_ids == k.c0.limb_ids and c.scaling_factor == k.scaling_factor
+        assert torch.equal(c.c0.data, k.c0.data.cpu()) and torch.equal(c.c1.data, k.c1.data.cpu())
 
 
 @pytest.mark.cuda

@@ -7,30 +7,34 @@ scaling factors and limbs; and each result decodes within the reference
 tests' own bounds.
 
 hehub_tpu runs its heavy operations jitted (torch_support.jit_reference_ops),
-which gives the same bits in a fraction of the eager compile time."""
+which gives the same bits in a fraction of the eager compile time. On the
+card, the circuits with keys made there, at alpha=2, at n=256 and n=16384,
+against numpy and bitwise against the same circuits on the CPU."""
 
 import types
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from hehub_tpu.circuits import linear_algebra as jla
-from hehub_tpu.circuits import poly_eval as jpe
-from hehub_tpu.core import rns as jrns
-from hehub_tpu.core.context import create_ckks_params as j_create_params
-from hehub_tpu.core.context import make_context as j_make_context
-from hehub_tpu.models import ckks as jckks
-from hehub_tpu.rlwe import keys as jkeys
-from hehub_tpu.rlwe import rlwe as jrlwe
-from hehub_tpu_torch import convert
+from hehub_tpu_torch import config, convert, kernels
 from hehub_tpu_torch.circuits import linear_algebra as tla
 from hehub_tpu_torch.circuits import poly_eval as tpe
 from hehub_tpu_torch.core import context as tctx
 from hehub_tpu_torch.models import ckks as tckks
+from hehub_tpu_torch.rlwe import keys as tkeys
 from hehub_tpu_torch.rlwe import rlwe as trlwe
-from tests.torch_support import as_numpy, jit_reference_ops
+from tests.torch_support import (Reference, as_numpy, cuda_device,  # noqa: F401
+                                 jit_reference_ops, to_device)
+
+jax = Reference("jax")
+jla = Reference("hehub_tpu.circuits.linear_algebra")
+jpe = Reference("hehub_tpu.circuits.poly_eval")
+jrns = Reference("hehub_tpu.core.rns")
+jcx = Reference("hehub_tpu.core.context")
+jckks = Reference("hehub_tpu.models.ckks")
+jkeys = Reference("hehub_tpu.rlwe.keys")
+jrlwe = Reference("hehub_tpu.rlwe.rlwe")
 
 N = 256
 SLOTS = N // 2
@@ -46,9 +50,9 @@ def env():
     with pytest.MonkeyPatch.context() as mp:
         jit_reference_ops(mp)
         params = tctx.create_ckks_params(N, 28, LEVELS, use_security_budget=False)
-        jparams = j_create_params(N, 28, LEVELS, use_security_budget=False)
+        jparams = jcx.create_ckks_params(N, 28, LEVELS, use_security_budget=False)
         assert params.moduli == jparams.moduli and params.special_mod == jparams.special_mod
-        ctx, jctx = tctx.make_context(params), j_make_context(jparams)
+        ctx, jctx = tctx.make_context(params), jcx.make_context(jparams)
         gen = torch.Generator().manual_seed(11)
         sk = trlwe.keygen(ctx, gen)
         jsk = jrlwe.RlweSk(sk.coeffs.numpy(), as_numpy(sk.ntt), as_numpy(sk.ntt_sh))
@@ -157,3 +161,69 @@ def test_rebase_scale_and_align_level_guards(env):
     high = tckks.CkksCt(ct.c0, ct.c1, ct.scaling_factor * 2.0**40)
     with pytest.raises(ValueError):
         tpe.rebase_scale(env.ctx, env.params, high)
+
+
+ACC_STEPS = (0, 2, 5)
+
+
+def _circuits(ctx, params, cts, rlk, rks):
+    """The circuits on the card, each a ciphertext: matrix_vector_mul
+    (hoisted rotations), sign, inverse, rotate_accumulate."""
+    return dict(
+        matrix_vector_mul=tla.matrix_vector_mul(ctx, params, cts["mat"], cts["vec"], rks),
+        sign=tpe.sign(ctx, params, cts["sign"], rlk, iterations=2),
+        inverse=tpe.inverse(ctx, params, cts["inverse"], rlk, iterations=3),
+        rotate_accumulate=tckks.rotate_accumulate(ctx, list(zip(cts["acc"], ACC_STEPS)), rks))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,levels,mv,mv_bound",
+                         [(N, LEVELS, MV, 2.0**-6), (16384, 12, 64, 2.0**-7)])
+def test_circuits_on_card_are_cpu(cuda_device, monkeypatch, n, levels, mv, mv_bound):  # noqa: F811
+    """The circuits at alpha=2, a batch of 2, keys made on the card: at
+    n=256 on 10 + 2 limbs with an 8 x 8 matrix, and on std128.ks_b64's
+    n=16384, 12 + 2 limbs, with a 64 x 64 matrix (126 rotation keys).
+    Decoded within the reference tests' bounds (tests/test_linalg.py,
+    tests/test_poly_eval.py, tests/test_ckks.py), K1, K2, ModUp, K4 and K5
+    launched, and the same circuits on the CPU (the device codec's plain
+    version for the encodes inside them) bitwise the card's ciphertexts,
+    scales and limbs."""
+    params = tctx.create_ckks_params(n, 28, levels, use_security_budget=False, num_special=2)
+    ctx = tctx.make_context(params)
+    slots = n // 2
+    rng = np.random.default_rng(21)
+    vec = np.zeros((2, slots))
+    vec[:, :mv] = rng.uniform(-1, 1, (2, mv))
+    inputs = dict(mat=rng.uniform(-1, 1, (mv, mv)), vec=vec,
+                  sign=rng.uniform(0.6, 1, (2, slots)) * rng.choice([-1.0, 1.0], (2, slots)),
+                  inverse=rng.uniform(0.6, 1.4, (2, slots)),
+                  acc=[rng.uniform(-1, 1, (2, slots)) for _ in ACC_STEPS])
+    gen = torch.Generator(device=cuda_device).manual_seed(21)
+    kernels.reset_launch_counts()
+    sk = trlwe.keygen(ctx, gen)
+    rlk = tkeys.relin_key(ctx, sk, gen, alpha=2)
+    steps = sorted(set(tla.mv_mul_requiring_steps(slots, mv)) | set(ACC_STEPS) - {0})
+    rks = {s: tkeys.rot_key(ctx, sk, s, gen, alpha=2) for s in steps}
+    enc = lambda v: tckks.encrypt(ctx, tckks.encode(v, params, device=cuda_device), sk, gen)  # noqa: E731
+    cts = dict(mat=inputs["mat"], vec=enc(vec), sign=enc(inputs["sign"]),
+               inverse=enc(inputs["inverse"]), acc=[enc(v) for v in inputs["acc"]])
+    outs = _circuits(ctx, params, cts, rlk, rks)
+    dec = {k: tckks.decode(tckks.decrypt(ctx, ct, sk), params) for k, ct in outs.items()}
+    torch.cuda.synchronize()
+    for kind in ("ntt_fwd", "ntt_inv", "modup", "ext_prod_conv", "fft"):
+        assert kernels.LAUNCHES[kind] > 0, kind
+    assert np.abs(dec["matrix_vector_mul"][:, :mv].real - vec[:, :mv] @ inputs["mat"].T).max() \
+        <= mv_bound
+    assert np.abs(dec["sign"].real - np.sign(inputs["sign"])).max() < 0.15
+    np.testing.assert_allclose(dec["inverse"].real, 1.0 / inputs["inverse"], rtol=3e-2)
+    want = sum(np.roll(v, s, axis=-1) for v, s in zip(inputs["acc"], ACC_STEPS))
+    assert np.abs(dec["rotate_accumulate"] - want).max() <= 2.0**-8
+
+    monkeypatch.setattr(config, "use_device_codec", True)
+    cpu = _circuits(ctx, params, to_device(cts, "cpu"), *to_device((rlk, rks), "cpu"))
+    for name, got in outs.items():
+        want = cpu[name]
+        assert got.c0.limb_ids == want.c0.limb_ids, name
+        assert got.scaling_factor == want.scaling_factor, name
+        assert torch.equal(got.c0.data.cpu(), want.c0.data), name
+        assert torch.equal(got.c1.data.cpu(), want.c1.data), name

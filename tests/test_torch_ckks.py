@@ -7,6 +7,9 @@
     numpy's np.roll(a*b, 1) (atol 2^-8: tests/test_ckks.py allows 2^-9 per
     operation);
 (d) sampler statistics;
+(e) on the card, the CKKS steps at alpha=1 (K3) and alpha>1 (ModUp, K4),
+    and by parts at n=262144, against numpy and bitwise against the same
+    steps on the CPU;
 and chip_smoke.py's refusal to run without a card."""
 
 import functools
@@ -15,23 +18,23 @@ import shutil
 import subprocess
 import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from hehub_tpu.core.context import create_ckks_params as j_create_params
-from hehub_tpu.core.context import make_context as j_make_context
-from hehub_tpu.models import ckks as jckks
-from hehub_tpu.rlwe import keys as jkeys
-from hehub_tpu.rlwe import rlwe as jrlwe
-from hehub_tpu_torch import convert
+from hehub_tpu_torch import config, convert, kernels
 from hehub_tpu_torch.core import context as tctx
 from hehub_tpu_torch.core import sampling
 from hehub_tpu_torch.models import ckks as tckks
 from hehub_tpu_torch.rlwe import keys as tkeys
 from hehub_tpu_torch.rlwe import rlwe as trlwe
-from tests.torch_support import as_numpy
+from tests.torch_support import Reference, as_numpy, cuda_device, to_device  # noqa: F401
+
+jax = Reference("jax")
+jcx = Reference("hehub_tpu.core.context")
+jckks = Reference("hehub_tpu.models.ckks")
+jkeys = Reference("hehub_tpu.rlwe.keys")
+jrlwe = Reference("hehub_tpu.rlwe.rlwe")
 
 RNG = np.random.default_rng(29)
 N = 256
@@ -41,8 +44,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 @functools.lru_cache(maxsize=None)
 def _jax_setup():
-    params = j_create_params(N, 28, LEVELS, use_security_budget=False)
-    ctx = j_make_context(params)
+    params = jcx.create_ckks_params(N, 28, LEVELS, use_security_budget=False)
+    ctx = jcx.make_context(params)
     sk = jrlwe.keygen(ctx, jax.random.key(0))
     rlk = jkeys.relin_key(ctx, sk, jax.random.key(1))
     rk = jkeys.rot_key(ctx, sk, 1, jax.random.key(2))
@@ -182,3 +185,73 @@ def test_chip_smoke_refuses_without_card(tmp_path):
     for run in runs:
         assert run.returncode != 0
         assert '"ok": true' not in run.stdout
+
+
+# (n, chain limbs, special limbs, alpha, bounds on the product's and the
+# rotated product's slots): n=16384 on 7 + 1 limbs and n=256 on 2 + 1 at
+# alpha=1 (K3); at alpha>1 (ModUp, K4) n=256 on 4 + 2, std128.ks_b64's
+# n=16384 on 12 + 2 and n=65536 on 4 + 4 at alpha=4 (K1, K2, K4 on
+# sub-rows, K5 at m=32768); n=262144 on 2 + 2 at alpha 1 and 2, where every
+# key switch runs by parts (the stage kernel S, then K4; K3 never) and the
+# codec through K5 and F. At n=16384, alpha=1, the rotate carries the
+# reference algorithm's own error (hehub_tpu's, which the port matches bit
+# for bit): its key-switch digits are unsigned, in [0, q_i), and their mean
+# q_i/2 times the key's noise lands on the slots whose root lies next to 1,
+# about (n/π)·sqrt(l·n)·σ/Δ = 0.078 at l=6, Δ ≈ 2^26 (ROADMAP.md, Queue 3);
+# the hybrid key switch's noise grows with n too, about 2^-7 at n=65536. At
+# n=262144 the rescale's rounding noise reaches a slot as a sum over n
+# coefficients: 2^-8 at n=65536 times the ring's ratio
+CARD_CASES = [(16384, 7, 1, 1, 2.0**-8, 2.0**-3), (256, 2, 1, 1, 2.0**-8, 2.0**-8),
+              (256, 4, 2, 2, 2.0**-8, 2.0**-8), (16384, 12, 2, 2, 2.0**-8, 2.0**-8),
+              (65536, 4, 4, 4, 2.0**-8, 2.0**-5), (262144, 2, 2, 1, 2.0**-6, 2.0**-5),
+              (262144, 2, 2, 2, 2.0**-6, 2.0**-5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,levels,special,alpha,mult_bound,rot_bound", CARD_CASES)
+def test_ckks_steps_on_card_are_cpu(cuda_device, monkeypatch, n, levels, special, alpha,  # noqa: F811
+                                    mult_bound, rot_bound):
+    """Keys, encode + encrypt (the device codec), mult + relinearize +
+    rescale, rotate(1), decrypt + decode of a batch of 2 on the card: the
+    slots within mult_bound of a*b and within rot_bound of its roll, the
+    key switch's kernels launched (ModUp once a K4 launch at alpha>1), and
+    the steps on the CPU through the plain versions bitwise the card's,
+    their slots (through the device codec's plain version) within 1e-12."""
+    params = tctx.create_ckks_params(n, 28, levels, use_security_budget=False,
+                                     num_special=special)
+    ctx = tctx.make_context(params)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + alpha)
+    rng = np.random.default_rng(n + alpha)
+    a, b = (rng.uniform(-1, 1, (2, n // 2)) for _ in range(2))
+    kernels.reset_launch_counts()
+    sk = trlwe.keygen(ctx, gen)
+    rlk = tkeys.relin_key(ctx, sk, gen, alpha=alpha)
+    rk = tkeys.rot_key(ctx, sk, 1, gen, alpha=alpha)
+    ca, cb = (tckks.encrypt(ctx, tckks.encode(v, params, device=cuda_device), sk, gen)
+              for v in (a, b))
+    prod = tckks.rescale(ctx, tckks.mult(ctx, ca, cb, rlk))
+    rot = tckks.rotate(ctx, prod, rk, 1)
+    out_prod, out_rot = (tckks.decode(tckks.decrypt(ctx, c, sk), params) for c in (prod, rot))
+    torch.cuda.synchronize()
+    if n > kernels.MAX_ROW_N:
+        switch = ("ntt_stage", "ext_prod_conv", "fft_stage") + (("modup",) if alpha > 1 else ())
+        assert kernels.LAUNCHES["ext_prod"] == 0
+    else:
+        switch = ("ext_prod",) if alpha == 1 else ("ext_prod_conv", "modup")
+    for kind in ("ntt_fwd", "ntt_inv", "fft", "moddown_lift", "moddown_apply") + switch:
+        assert kernels.LAUNCHES[kind] > 0, kind
+    if alpha > 1:
+        assert kernels.LAUNCHES["modup"] == kernels.LAUNCHES["ext_prod_conv"]
+    assert rot.c0.limb_ids == tuple(range(levels - 1))
+    assert np.abs(out_prod - a * b).max() <= mult_bound
+    assert np.abs(out_rot - np.roll(a * b, 1, axis=-1)).max() <= rot_bound
+
+    prod_c = tckks.rescale(ctx, tckks.mult(ctx, *to_device((ca, cb, rlk), "cpu")))
+    rot_c = tckks.rotate(ctx, prod_c, to_device(rk, "cpu"), 1)
+    for got, want in ((prod, prod_c), (rot, rot_c)):
+        assert got.c0.limb_ids == want.c0.limb_ids and got.scaling_factor == want.scaling_factor
+        assert torch.equal(got.c0.data.cpu(), want.c0.data)
+        assert torch.equal(got.c1.data.cpu(), want.c1.data)
+    monkeypatch.setattr(config, "use_device_codec", True)
+    got_c = tckks.decode(tckks.decrypt(ctx, rot_c, to_device(sk, "cpu")), params)
+    assert np.abs(got_c - out_rot).max() <= 1e-12

@@ -13,22 +13,23 @@ hehub_tpu runs its heavy operations jitted (torch_support.jit_reference_ops)."""
 
 import types
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from hehub_tpu.core import context as jcx
-from hehub_tpu.core import rns as jrns
-from hehub_tpu.models import ckks as jckks
-from hehub_tpu.rlwe import keys as jkeys
-from hehub_tpu.rlwe import rlwe as jrlwe
 from hehub_tpu_torch import convert
 from hehub_tpu_torch.core import context as tctx
 from hehub_tpu_torch.core import rns as trns
 from hehub_tpu_torch.models import ckks as tckks
 from hehub_tpu_torch.rlwe import rlwe as trlwe
-from tests.torch_support import as_numpy, jit_reference_ops
+from tests.torch_support import Reference, as_numpy, jit_reference_ops
+
+jax = Reference("jax")
+jcx = Reference("hehub_tpu.core.context")
+jrns = Reference("hehub_tpu.core.rns")
+jckks = Reference("hehub_tpu.models.ckks")
+jkeys = Reference("hehub_tpu.rlwe.keys")
+jrlwe = Reference("hehub_tpu.rlwe.rlwe")
 
 N = 256
 SLOTS = N // 2

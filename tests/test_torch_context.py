@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
-from hehub_tpu.core import context as jctx
 from hehub_tpu_torch.core import context as tctx
+from tests.torch_support import Reference
+
+jctx = Reference("hehub_tpu.core.context")
 
 TABLES = ("q", "two_q", "neg_qinv", "r_mod_q", "r_shoup", "r2_mod_q", "n_inv", "n_inv_sh",
           "tw_inv_last", "tw_inv_last_sh", "tw_fwd", "tw_fwd_sh", "tw_inv", "tw_inv_sh")

@@ -36,7 +36,7 @@ from hehub_tpu_torch.rlwe import rgsw as trgsw
 from hehub_tpu_torch.rlwe import rlwe as trlwe
 from hehub_tpu_torch.utils import hostmath as hm
 from tests.torch_support import (  # noqa: F401
-    as_numpy, cuda_device, ext_prod_case, lazy_residues, plain_ext_prod_conv)
+    as_numpy, cuda_device, ext_prod_case, lazy_residues, plain_ext_prod_conv, to_device)
 
 RNG = np.random.default_rng(17)
 N = 256
@@ -591,11 +591,7 @@ def test_ckks_ops_divide_without_plain_loop_on_card(cuda_device):  # noqa: F811
     torch.cuda.synchronize()
     assert tbc.PLAIN_DIVISIONS_ON_CARD == plain_before
     assert kernels.LAUNCHES["moddown_lift"] == lifts + 5
-    on_cpu = lambda ct: tckks.CkksCt(  # noqa: E731
-        trns.RnsPoly(ct.c0.data.cpu(), ct.c0.form, ct.c0.limb_ids),
-        trns.RnsPoly(ct.c1.data.cpu(), ct.c1.form, ct.c1.limb_ids), ct.scaling_factor)
-    key_on_cpu = lambda k: trgsw.RgswCt(k.data.cpu(), k.limb_ids, k.alpha)  # noqa: E731
-    cpu = ops(on_cpu(a), on_cpu(b), key_on_cpu(rlk), {s: key_on_cpu(k) for s, k in rks.items()})
+    cpu = ops(*to_device((a, b, rlk, rks), "cpu"))
     for got, want in zip(card, cpu):
         assert got.c0.limb_ids == want.c0.limb_ids and got.scaling_factor == want.scaling_factor
         assert torch.equal(got.c0.data.cpu(), want.c0.data)

@@ -3,17 +3,21 @@ operation bitwise on random lazy residues and on the edge values 0, q-1,
 2q-1 (and 2^32-1 for Shoup's any-uint32 domain); mul_hi against Python
 ints."""
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from hehub_tpu.core.context import create_ckks_params, make_context
-from hehub_tpu.ops import modarith as jma
+from hehub_tpu_torch.core import context as tctx
 from hehub_tpu_torch.ops import modarith as tma
+from tests.torch_support import Reference
+
+jnp = Reference("jax.numpy")
+jcx = Reference("hehub_tpu.core.context")
+jma = Reference("hehub_tpu.ops.modarith")
 
 RNG = np.random.default_rng(7)
-CTX = make_context(create_ckks_params(1024, 28, 2, use_security_budget=False))
+# the port's tables, bitwise the reference's (tests/test_torch_context.py)
+CTX = tctx.make_context(tctx.create_ckks_params(1024, 28, 2, use_security_budget=False))
 LIMB = 0
 Q = int(CTX.q[LIMB, 0])
 CONST = {nm: int(getattr(CTX, nm)[LIMB, 0])
@@ -96,11 +100,11 @@ def test_reduce_add_lazy_bitwise(k):
 def test_rns_ops_bitwise(op):
     """hehub_tpu_torch.core.rns against hehub_tpu.core.rns, over limbs (2, 0, 1)."""
     from hehub_tpu.core import rns as jrns
-    from hehub_tpu_torch.core import context as tctx
     from hehub_tpu_torch.core import rns as trns
 
     ids = (2, 0, 1)
-    tc = tctx.make_context(tctx.create_ckks_params(1024, 28, 2, use_security_budget=False))
+    tc = CTX
+    jc = jcx.make_context(jcx.create_ckks_params(1024, 28, 2, use_security_budget=False))
     two_q = 2 * CTX.q[list(ids)].astype(np.int64)
     a = (RNG.integers(0, 1 << 62, (2, 3, 1024)) % two_q).astype(np.uint32)
     b = (RNG.integers(0, 1 << 62, (2, 3, 1024)) % two_q).astype(np.uint32)
@@ -108,12 +112,12 @@ def test_rns_ops_bitwise(op):
     ta, tb = trns.RnsPoly(_t(a), trns.NTT, ids), trns.RnsPoly(_t(b), trns.NTT, ids)
     scalars = [5, 1 << 40, Q - 1]
     want, got = {
-        "add": lambda: (jrns.add(CTX, ja, jb), trns.add(tc, ta, tb)),
-        "sub": lambda: (jrns.sub(CTX, ja, jb), trns.sub(tc, ta, tb)),
-        "neg": lambda: (jrns.neg(CTX, ja), trns.neg(tc, ta)),
-        "mul": lambda: (jrns.mul(CTX, ja, jb), trns.mul(tc, ta, tb)),
-        "mul_scalar": lambda: (jrns.mul_scalar(CTX, ja, scalars), trns.mul_scalar(tc, ta, scalars)),
-        "reduce_strict": lambda: (jrns.reduce_strict(CTX, ja), trns.reduce_strict(tc, ta)),
+        "add": lambda: (jrns.add(jc, ja, jb), trns.add(tc, ta, tb)),
+        "sub": lambda: (jrns.sub(jc, ja, jb), trns.sub(tc, ta, tb)),
+        "neg": lambda: (jrns.neg(jc, ja), trns.neg(tc, ta)),
+        "mul": lambda: (jrns.mul(jc, ja, jb), trns.mul(tc, ta, tb)),
+        "mul_scalar": lambda: (jrns.mul_scalar(jc, ja, scalars), trns.mul_scalar(tc, ta, scalars)),
+        "reduce_strict": lambda: (jrns.reduce_strict(jc, ja), trns.reduce_strict(tc, ta)),
         "take_limbs": lambda: (jrns.take_limbs(ja, (2, 0)), trns.take_limbs(ta, (2, 0))),
         "drop_last_limb": lambda: (jrns.drop_last_limb(ja), trns.drop_last_limb(ta)),
     }[op]()

@@ -15,7 +15,9 @@ The port's ranks are one 8-rank gloo World on the CPU for the whole module
 its process group, start, tasks and joins each time out after 120 s. JAX is
 imported inside the tests that use it, so the card tests (`cuda` marker:
 the stage kernel, K2 without the fold, K1/K2 at n=262144, K3 on a
-destination-limb slice of the key) run where JAX is not installed."""
+destination-limb slice of the key, dryrun_multichip with its ranks on the
+card, sharded steps in two ranks sharing it, the pipelines over three
+streams of it) run where JAX is not installed."""
 
 import functools
 
@@ -31,6 +33,7 @@ from hehub_tpu_torch.ops import ntt as tn
 from hehub_tpu_torch.parallel import mesh as pmesh
 from hehub_tpu_torch.parallel import ntt_sharded
 from hehub_tpu_torch.parallel import pipeline as tpipe
+from hehub_tpu_torch.rlwe import keys as tkeys
 from hehub_tpu_torch.rlwe import rgsw as trgsw
 from hehub_tpu_torch.rlwe import rlwe as trlwe
 from hehub_tpu_torch.utils import hostmath as hm
@@ -558,3 +561,100 @@ def test_ext_prod_on_a_destination_limb_slice_of_the_key(cuda_device):
     tabs = [ctx.device_rows(nm, (2, 3), cuda_device, torch.int32) for nm in tn.EXT_TABLES]
     out = kernels.ext_prod(tn.to_u32_bits(poly.data), view, *tabs)
     assert torch.equal(tn.from_u32_bits(out[0]), whole.c0.data[..., 2:4, :])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranks", [1, 8])
+def test_dryrun_multichip_on_card(cuda_device, ranks):
+    """entry.dryrun_multichip with its ranks on the card: one rank in an
+    NCCL world (whose all_gather and broadcast return their tensors
+    unchanged), or eight sharing the card over gloo. Each rank asserts its
+    shards bitwise the unsharded port's; K1, K2, K3 (and with eight ranks
+    the stage kernel of the sharded NTT) launch in the ranks."""
+    if ranks == 1:
+        with pmesh.World(1, devices=[cuda_device], timeout=TIMEOUT) as w:
+            assert w.backend == "nccl"
+            reports = entry.dryrun_multichip(1, world=w)
+            assert w.run(tasks.collectives_unchanged) == [True]
+    else:
+        reports = entry.dryrun_multichip(ranks)
+    assert len(reports) == ranks and all(r["device"].startswith("cuda") for r in reports)
+    launches = {k: sum(r["launches"][k] for r in reports) for k in kernels.LAUNCHES}
+    for kind in ("ntt_fwd", "ntt_inv", "ext_prod") + (("ntt_stage",) if ranks > 1 else ()):
+        assert launches[kind] > 0, kind
+
+
+def _port_step(kind, num_special, key, key_ids, alpha, args, scale):
+    """The unsharded step of tasks.sharded_step on the CPU, as numpy."""
+    ctx = tasks._ctx(N, LEVELS, num_special)
+    ids = tuple(range(LEVELS))
+    mk = lambda c0, c1: tckks.CkksCt(  # noqa: E731
+        *(RnsPoly(torch.from_numpy(c.astype(np.int64)), NTT, ids) for c in (c0, c1)), scale)
+    rgsw = convert.rgsw_from_numpy(key, key_ids, alpha, device="cpu")
+    a = mk(*args[:2])
+    if kind == "mult":
+        out = tckks.rescale(ctx, tckks.mult(ctx, a, mk(*args[2:]), rgsw))
+    else:
+        out = tckks.rotate(ctx, a, rgsw, 3)
+    return as_numpy(out.c0.data), as_numpy(out.c1.data)
+
+
+@pytest.mark.cuda
+def test_sharded_steps_on_card(cuda_device):
+    """Two ranks sharing the card (gloo): the alpha=1 mult step on the
+    (2, 1) and (1, 2) meshes, the alpha=2 mult (ModUp and K4 on each rank's
+    limbs) and rotate(3) on (1, 2), each assembled bitwise the unsharded
+    step on the CPU."""
+    rng = np.random.default_rng(17)
+    with pmesh.World(2, devices=[cuda_device] * 2, timeout=TIMEOUT) as w:
+        assert w.backend == "gloo"
+        for kind, alpha, mesh_shape in (("mult", 1, (2, 1)), ("mult", 1, (1, 2)),
+                                        ("mult", 2, (1, 2)), ("rotate", 2, (1, 2))):
+            ctx = tasks._ctx(N, LEVELS, alpha)
+            ids = tuple(range(LEVELS))
+            ids_ext = ids + ctx.special_indices
+            args = [lazy_residues(rng, (4,), ctx.moduli_of(ids), N) for _ in range(4)]
+            key = lazy_residues(rng, (-(-LEVELS // alpha), 2), ctx.moduli_of(ids_ext), N)
+            scale = ctx.params.initial_scaling_factor
+            res = w.run(tasks.sharded_step, kind, N, LEVELS, alpha, key, ids_ext, alpha, args,
+                        scale, mesh_shape)
+            want = _port_step(kind, alpha, key, ids_ext, alpha, args, scale)
+            for got, exp in zip(_assemble(res), want):
+                np.testing.assert_array_equal(got, exp)
+
+
+@pytest.mark.cuda
+def test_pipelines_on_card_are_sequential(cuda_device):
+    """PipelinedSquaringChain of depth 3 and the square -> rotate(3) ->
+    halve Pipeline over [cuda] * 3 (three streams of the card), 3
+    microbatches of 2 ciphertexts made there at scale 2^30: bitwise the
+    sequential chains on the card, decoded within 3 * 2^-8 of v^8 and 2^-8
+    of the rotated, halved square."""
+    params = tctx.create_ckks_params(N, 28, LEVELS, use_security_budget=False)
+    ctx = tctx.make_context(params)
+    gen = torch.Generator(device=cuda_device).manual_seed(72)
+    sk = trlwe.keygen(ctx, gen)
+    rlk, rk = tkeys.relin_key(ctx, sk, gen), tkeys.rot_key(ctx, sk, 3, gen)
+    rng = np.random.default_rng(72)
+    vs = [rng.uniform(-1, 1, (2, N // 2)) * 0.9 for _ in range(3)]
+    cts = [tckks.encrypt(ctx, tckks.encode(v, params, 2.0**30, device=cuda_device), sk, gen)
+           for v in vs]
+    half = np.full(N // 2, 0.5)
+    square = lambda c, ct: tckks.rescale(c, tckks.mult(c, ct, ct, rlk))  # noqa: E731
+    stages = [square, lambda c, ct: tckks.rotate(c, ct, rk, 3),
+              lambda c, ct: tckks.rescale(c, tckks.mult_plain(c, ct, tckks.encode(
+                  half, c.params, level=LEVELS - ct.c0.limb_count, device=cuda_device)))]
+    devices = [cuda_device] * 3
+    for pipe, fns, want, bound in (
+            (tpipe.PipelinedSquaringChain(ctx, rlk, 3, LEVELS, devices), [square] * 3,
+             [v**8 for v in vs], 3 * 2.0**-8),
+            (tpipe.Pipeline(ctx, stages, devices), stages,
+             [np.roll(v * v, 3, axis=-1) * 0.5 for v in vs], 2.0**-8)):
+        got = pipe.run(cts)
+        for ct, out, w in zip(cts, got, want):
+            for fn in fns:
+                ct = fn(ctx, ct)
+            assert out.c0.limb_ids == ct.c0.limb_ids and out.scaling_factor == ct.scaling_factor
+            assert torch.equal(out.c0.data, ct.c0.data) and torch.equal(out.c1.data, ct.c1.data)
+            err = np.abs(tckks.decode(tckks.decrypt(ctx, out, sk), params) - w).max()
+            assert err <= bound

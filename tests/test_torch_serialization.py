@@ -5,7 +5,10 @@ writes loads in the port bitwise, and the file the port writes of it loads
 in hehub_tpu bitwise, the same arrays under the same names and dtypes;
 parameters' JSON both ways; and the three noise probes equal hehub_tpu's
 on the same ciphertexts (the port's own, handed over as numpy) and secret
-key.
+key. On the card, a ciphertext and an alpha=2 key saved and loaded back
+onto it bitwise, and the noise probes of card ciphertexts equal to those of
+their CPU copies (the error probe, which decodes, within the two codecs'
+agreement).
 
 hehub_tpu runs its NTTs jitted (torch_support.jit_reference_ops)."""
 
@@ -26,7 +29,8 @@ from hehub_tpu_torch.rlwe import rlwe as trlwe
 from hehub_tpu_torch.utils import noise as tnoise
 from hehub_tpu_torch.utils import serialization as tser
 from tests.test_torch_bgv import _setup as bgv_setup
-from tests.torch_support import as_numpy, jit_reference_ops
+from tests.torch_support import (as_numpy, cuda_device, jit_reference_ops,  # noqa: F401
+                                 to_device)
 
 N = 256
 LEVELS = 3
@@ -243,3 +247,51 @@ def test_headroom_above_float_range(monkeypatch):
     monkeypatch.setattr(jnoise, "_decrypt_centered", lambda *a: (vals, Q))
     with pytest.raises(OverflowError):
         jnoise.modulus_headroom_bits(None, None, None)
+
+
+@pytest.mark.cuda
+def test_card_objects_load_back_onto_the_card(cuda_device, tmp_path):  # noqa: F811
+    """A ciphertext made on the card (mult + relinearize + rescale at
+    alpha=2) and the alpha=2 relinearization key, saved and loaded onto the
+    card: bitwise the saved ones there, the ciphertext decoding to the same
+    slots; and the noise probes of the card's ciphertexts equal to those of
+    their copies on the CPU, the headroom shrinking with the mult and the
+    product's error under 2^-8."""
+    params = tctx.create_ckks_params(N, 28, LEVELS, use_security_budget=False, num_special=2)
+    ctx = tctx.make_context(params)
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    sk = trlwe.keygen(ctx, gen)
+    rlk = tkeys.relin_key(ctx, sk, gen, alpha=2)
+    v = np.random.default_rng(13).uniform(-1, 1, N // 2)
+    ct = tckks.encrypt(ctx, tckks.encode(v, params, device=cuda_device), sk, gen)
+    sq = tckks.rescale(ctx, tckks.mult(ctx, ct, ct, rlk))
+    dec = lambda c: tckks.decode(tckks.decrypt(ctx, c, sk), params)  # noqa: E731
+    for name, obj in (("ciphertext", sq), ("relin_key", rlk)):
+        path = tmp_path / f"{name}.npz"
+        tser.save(str(path), obj, params)
+        back, back_params = tser.load(str(path), device=cuda_device)
+        assert back_params == params
+        if name == "ciphertext":
+            assert back.c0.limb_ids == sq.c0.limb_ids and back.scaling_factor == sq.scaling_factor
+            assert back.c0.data.device == sq.c0.data.device
+            assert torch.equal(back.c0.data, sq.c0.data) and torch.equal(back.c1.data, sq.c1.data)
+            np.testing.assert_array_equal(dec(back), dec(sq))
+        else:
+            assert back.limb_ids == rlk.limb_ids and back.alpha == rlk.alpha == 2
+            assert back.data.device == rlk.data.device and torch.equal(back.data, rlk.data)
+
+    sk_c = to_device(sk, "cpu")
+    heads = []
+    for c in (ct, sq):
+        got = tnoise.modulus_headroom_bits(ctx, (c.c0, c.c1), sk)
+        c_c = to_device(c, "cpu")
+        assert got == tnoise.modulus_headroom_bits(ctx, (c_c.c0, c_c.c1), sk_c)
+        heads.append(got)
+    assert heads[0] > heads[1] > 0
+    err = tnoise.ckks_error_bits(ctx, sq, sk, v * v, params)
+    # the device codec's decode and the host codec's agree to 1e-9
+    # (tests/test_torch_codec.py), so the errors they measure do too
+    np.testing.assert_allclose(
+        2.0**err, 2.0**tnoise.ckks_error_bits(ctx, to_device(sq, "cpu"), sk_c, v * v, params),
+        rtol=0, atol=1e-9)
+    assert err <= -8

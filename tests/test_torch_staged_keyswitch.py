@@ -17,9 +17,9 @@ plain twins.
     ckks.encode / decode with the device codec's plain version
     (config.use_device_codec = True) against hehub_tpu's codec;
 (d) on the card (`cuda` marker): the split routes through the kernels
-    bitwise their plain twins at n = 262144, 524288 and 2^23, CKKS mult and
-    rotate at n = 262144 on 2+2 limbs bitwise the CPU run, and a ValueError
-    above kernels.MAX_N.
+    bitwise their plain twins at n = 262144, 524288 and 2^23, and a
+    ValueError above kernels.MAX_N (CKKS mult and rotate at n = 262144 on
+    the card: tests/test_torch_ckks.py).
 
 JAX is imported inside the tests that use it, so the card tests also run
 where JAX is not installed."""
@@ -38,9 +38,7 @@ from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly
 from hehub_tpu_torch.models import ckks as tckks
 from hehub_tpu_torch.ops import fft as tfft
 from hehub_tpu_torch.ops import ntt as tn
-from hehub_tpu_torch.rlwe import keys as tkeys
 from hehub_tpu_torch.rlwe import rgsw as trgsw
-from hehub_tpu_torch.rlwe import rlwe as trlwe
 from hehub_tpu_torch.utils import hostmath as hm
 from tests.torch_support import as_numpy, cuda_device, lazy_residues  # noqa: F401
 
@@ -307,39 +305,6 @@ def test_fft_parts_on_card_bitwise_plain(cuda_device, m):  # noqa: F811
     assert kernels.LAUNCHES["fft_stage"] == before["fft_stage"] + stages
     want = tfft.fft_plain(re, im, m)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("alpha", [1, 2])
-def test_ckks_mult_rotate_on_card_at_262144(cuda_device, alpha):  # noqa: F811
-    """CKKS mult + relinearize + rescale and rotate(1) at n = 262144 on 2 + 2
-    limbs, batch 2, on the card bitwise the same steps on the CPU, keys and
-    inputs made on the CPU and copied over."""
-    ctx = _ctx(BIG_N, 2, 2)
-    params = ctx.params
-    gen = torch.Generator().manual_seed(3 + alpha)
-    sk = trlwe.keygen(ctx, gen)
-    rlk = tkeys.relin_key(ctx, sk, gen, alpha=alpha)
-    rk = tkeys.rot_key(ctx, sk, 1, gen, alpha=alpha)
-    rng = np.random.default_rng(alpha)
-    cts = [tckks.encrypt(ctx, tckks.encode(rng.uniform(-1, 1, (2, BIG_N // 2)), params,
-                                           device="cpu"), sk, gen) for _ in range(2)]
-
-    def steps(a, b, rlk, rk):
-        prod = tckks.rescale(ctx, tckks.mult(ctx, a, b, rlk))
-        return prod, tckks.rotate(ctx, a, rk, 1)
-
-    def on_card(ct):
-        return tckks.CkksCt(RnsPoly(ct.c0.data.to(cuda_device), NTT, ct.c0.limb_ids),
-                            RnsPoly(ct.c1.data.to(cuda_device), NTT, ct.c1.limb_ids),
-                            ct.scaling_factor)
-
-    want = steps(*cts, rlk, rk)
-    key_on = lambda k: trgsw.RgswCt(k.data.to(cuda_device), k.limb_ids, k.alpha)  # noqa: E731
-    got = steps(on_card(cts[0]), on_card(cts[1]), key_on(rlk), key_on(rk))
-    for g_ct, w_ct in zip(got, want):
-        assert torch.equal(g_ct.c0.data.cpu(), w_ct.c0.data)
-        assert torch.equal(g_ct.c1.data.cpu(), w_ct.c1.data)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,8 @@ ciphertexts and keys made by hehub_tpu (noiseless and noisy), carried over
 with `convert` — all bitwise; a NAND truth table on the port's own keys;
 and the security estimates of tests/test_security.py against
 hehub_tpu.utils.security. On the card, one CMUX step, the monomial tables
-and the key switch bitwise against the CPU.
+and the key switch bitwise against the CPU, and a batch of NANDs on keys
+made there: its truth table, its launches, and the CPU's gates bitwise.
 
 hehub_tpu runs its NTTs jitted (torch_support.jit_reference_ops). JAX is
 imported inside the tests that use it, so the card tests also run where
@@ -23,7 +24,7 @@ import torch
 from hehub_tpu_torch import convert
 from hehub_tpu_torch.models import tfhe as ttfhe
 from hehub_tpu_torch.utils import security as tsec
-from tests.torch_support import as_numpy, cuda_device, jit_reference_ops  # noqa: F401
+from tests.torch_support import as_numpy, cuda_device, jit_reference_ops, to_device  # noqa: F401
 
 PAR = ttfhe.TfheParams(rlwe_dimension=256, lwe_dimension=32, decomp_bits=6, decomp_levels=5,
                        ks_decomp_bits=10, ks_levels=3)
@@ -350,3 +351,40 @@ def test_cmux_step_and_key_switch_on_card(cuda_device, params):  # noqa: F811
     want = ttfhe.key_switch(params, ttfhe.LweCt(ext.a.cpu(), ext.b.cpu()), cpu_keys)
     torch.cuda.synchronize()
     assert torch.equal(got.a.cpu(), want.a) and torch.equal(got.b.cpu(), want.b)
+
+
+@pytest.mark.cuda
+def test_nand_on_card_is_cpu(cuda_device):  # noqa: F811
+    """make_nand at PAR on keys made on the card, a batch of 8 bit pairs:
+    every output is 1 - (a & b); the blind rotation launches K1 once a CMUX
+    step on the [B·2·ℓ, 1, N] digits and K2 on the [B·2, 1, N] accumulator
+    difference, plus the final INTT; and the same gates on the CPU (the
+    blind rotation and the key switch through the plain versions) are
+    bitwise the card's."""
+    from hehub_tpu_torch import kernels
+
+    B = 8
+    gen = torch.Generator(device=cuda_device).manual_seed(41)
+    bits = np.random.default_rng(41).integers(0, 2, (2, B))
+    keys = ttfhe.keygen(PAR, gen)
+    nand = ttfhe.make_nand(PAR, keys)
+    c1, c2 = (ttfhe.lwe_encrypt(PAR, ttfhe.encode_bit(PAR, b, cuda_device), keys.lwe_s, gen)
+              for b in bits)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = nand(c1, c2)
+    torch.cuda.synchronize()
+    digits, diff = B * 2 * PAR.decomp_levels, B * 2
+    assert kernels.LAUNCH_ROWS["ntt_fwd"].get(digits) == M
+    assert kernels.LAUNCH_ROWS["ntt_inv"].get(diff) == M + 1
+    np.testing.assert_array_equal(as_numpy(ttfhe.lwe_decrypt_bit(PAR, out, keys.lwe_s)),
+                                  1 - (bits[0] & bits[1]))
+
+    lin = ttfhe._nand_linear(PAR, *to_device((c1, c2), "cpu"))
+    a_t, b_t = ttfhe._mod_switch_2n(PAR, lin.a), ttfhe._mod_switch_2n(PAR, lin.b)
+    lut = torch.full((N,), Q // 8, dtype=torch.int64)
+    acc = ttfhe.blind_rotate(PAR, lut, a_t, b_t, nand.bsk.cpu(),
+                             (nand.t_mont.cpu(), nand.tm1_mont.cpu()))
+    cpu_keys = ttfhe.TfheKeys(None, None, nand.bsk.cpu(), nand.ksk_a.cpu(), nand.ksk_b.cpu())
+    got = ttfhe.key_switch(PAR, ttfhe.sample_extract(PAR, acc), cpu_keys)
+    assert torch.equal(got.a, out.a.cpu()) and torch.equal(got.b, out.b.cpu())

@@ -133,3 +133,16 @@ def sharded_decode(n, levels, sk, key, key_ids, c0, c1, scale, mesh_shape):
     return (*_coords(mesh), _host(out.ct.c0.data), _host(out.ct.c1.data), out.ct.c0.limb_ids,
             slots)
 
+
+
+def collectives_unchanged():
+    """all_gather and broadcast over the world of a tensor on this rank's
+    device: whether each returns every rank's tensor unchanged."""
+    base = torch.arange(4096, dtype=torch.int32, device=pmesh.rank_device())
+    x = base * (dist.get_rank() + 1)
+    gathered = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, x)
+    sent = x.clone()
+    dist.broadcast(sent, src=0)
+    return (all(torch.equal(g, base * (r + 1)) for r, g in enumerate(gathered))
+            and torch.equal(sent, base))

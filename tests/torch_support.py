@@ -4,13 +4,29 @@ numpy-made inputs.
 
 Tests that need an NVIDIA card carry the `cuda` marker and take the
 `cuda_device` fixture, which skips them where there is none; on the card
-they run with `python -m pytest --noconftest -m cuda tests/test_torch_*.py`
-(that machine has no JAX, so those tests import none of it).
+they run with `python -m pytest --noconftest -m cuda tests/test_torch_*.py`.
+The port does not use JAX on the card: those tests import none of it, and
+a test file imports the JAX package inside the tests that use it or through
+`Reference`, never at its top.
 """
+
+import dataclasses
+import importlib
 
 import numpy as np
 import pytest
 import torch
+
+
+class Reference:
+    """A module of the JAX package (or of JAX), imported at its first
+    attribute read rather than when the test file is imported."""
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __getattr__(self, attr):
+        return getattr(importlib.import_module(self._name), attr)
 
 
 @pytest.fixture
@@ -18,6 +34,24 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
     return torch.device("cuda", 0)
+
+
+def to_device(obj, device):
+    """A copy of a port object with every tensor in it on `device`: a
+    ciphertext (CkksCt, BgvCt), a key (RgswCt, RlweSk), an RnsPoly, or a
+    list, tuple or dict of them. Other values are kept as they are."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: to_device(getattr(obj, f.name), device)
+                                          for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_device(v, device) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_device(v, device) for v in obj)
+    if isinstance(obj, dict):
+        return {k: to_device(v, device) for k, v in obj.items()}
+    return obj
 
 
 def lazy_residues(rng, batch_shape, mods, n):
