@@ -53,6 +53,7 @@ from hehub_tpu_torch.core.rns import COEFF, NTT, RnsPoly
 from hehub_tpu_torch.models import tfhe
 from hehub_tpu_torch.native import loader as native_loader
 from hehub_tpu_torch.ops import fft as fftmod
+from hehub_tpu_torch.ops import modarith
 from hehub_tpu_torch.ops import ntt as nttmod
 from hehub_tpu_torch.rlwe import rgsw as rgsw_mod
 from hehub_tpu_torch.utils import hostmath as hm
@@ -90,6 +91,9 @@ MODUP_SRC_OPS = 12
 MODDOWN_LIFT_OPS = 5
 MODDOWN_WALK_OPS = 14
 MODDOWN_APPLY_OPS = 7
+# the tensor product: two shoup_mul_lazy (4), four mont_mul_lazy (7) and one
+# add_lazy (3) a coefficient
+TENSOR_PRODUCT_OPS = 39
 FFT_BUTTERFLY_FLOPS = 10
 
 
@@ -113,6 +117,9 @@ ORIGIN = {
     # the port's own kernels: ModDown's lift and apply around K2 and K1, the
     # reference's jnp div_last_rounded once a dropped limb, not a Pallas kernel
     "moddown": ("hehub_tpu_torch/csrc/basecnv.cu", "hehub_tpu/core/basecnv.py:47"),
+    # the port's own kernel: the reference's jnp tensor product of a
+    # ciphertext product (mult_low_level), not a Pallas kernel
+    "tensor_product": ("hehub_tpu_torch/csrc/modarith.cu", "hehub_tpu/models/ckks.py:638"),
 }
 
 
@@ -536,6 +543,20 @@ def moddown_records(ctx, gen, R, L, count):
     return dict(measure(lift), **common), dict(measure(apply), **common)
 
 
+def tensor_case(ctx, gen, R, L):
+    """The tensor product of two ciphertexts [R, L, n] of lazy residues
+    against tensor_product_plain, the int64 chain it replaces."""
+    dev, n = gen.device, ctx.params.dimension
+    ids = tuple(range(L))
+    two_q = ctx.device_rows("two_q", ids, dev)
+    x = [lazy_residues(gen, (R, L, n), two_q) for _ in range(4)]
+    consts = [ctx.device_rows(nm, ids, dev) for nm in ("q", "two_q", "neg_qinv", "r_mod_q",
+                                                      "r_shoup")]
+    return Case(f"[{R}, {L}, {n}]", lambda: kernels.tensor_product(*x, *consts),
+                lambda: modarith.tensor_product_plain(*x, *consts),
+                8 * 7 * R * L * n + 8 * 5 * L, TENSOR_PRODUCT_OPS * R * L * n)
+
+
 # ---------------------------------------------------------------------------
 # The table: one entry for each row of PERF.md §6's table of kernels
 # ---------------------------------------------------------------------------
@@ -653,6 +674,10 @@ TABLE = (
           ((None, lambda g: moddown_records(ckks_ctx(65536, 54, 4), g, 8, 54, 4)),)),
     Entry("D", ("moddown_lift_sse", "moddown_apply_sse"), "moddown",
           ((None, lambda g: moddown_records(boot_ctx(65536, 47, 4), g, 1, 47, 4)),)),
+    Entry("T", ("tensor_product",), "tensor_product",
+          ((None, lambda g: tensor_case(ckks_ctx(16384, 12, 2), g, 64, 12)),
+           ("deep_top", lambda g: tensor_case(ckks_ctx(65536, 54, 4), g, 8, 54)),
+           ("boot_evalmod", lambda g: tensor_case(boot_ctx(65536, 47, 4), g, 1, 41)))),
 )
 
 

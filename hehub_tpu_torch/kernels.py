@@ -17,7 +17,8 @@ its rows in `LAUNCH_ROWS`. They are called by the wrappers `ops.ntt.ntt` /
 digits' base conversion; K4 on parts of MAX_ROW_N after the stage kernel
 above it), `core.basecnv.div_last_rounded_many` (ModDown's lift and apply
 around K2 and K1: the division by the dropped limbs of a key switch or a
-rescale) and `ops.fft.fft` (K5; above MAX_FFT_M K5 on parts, then the FFT
+rescale), `ops.modarith.tensor_product` (a ciphertext product's tensor
+product) and `ops.fft.fft` (K5; above MAX_FFT_M K5 on parts, then the FFT
 stage kernel F), which hold the plain PyTorch versions beside them.
 `mark` launches a marker (csrc/marker.cu: empty kernels, each under the
 name of a stage of the bootstrap, circuits/bootstrap.MARKERS).
@@ -28,6 +29,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import math
 import os
 import pathlib
 import shutil
@@ -46,15 +48,15 @@ NVCC_FLAGS = (
 )
 # one shared library per source file
 SOURCES = {"ntt": "ntt.cu", "extprod": "extprod.cu", "fft": "fft.cu", "basecnv": "basecnv.cu",
-           "marker": "marker.cu"}
+           "marker": "marker.cu", "modarith": "modarith.cu"}
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {
     "ntt_fwd": 0, "ntt_inv": 0, "ext_prod": 0, "ext_prod_conv": 0, "fft": 0, "ntt_stage": 0,
-    "fft_stage": 0, "modup": 0, "moddown_lift": 0, "moddown_apply": 0,
+    "fft_stage": 0, "modup": 0, "moddown_lift": 0, "moddown_apply": 0, "tensor_product": 0,
 }
-# the same launches by their rows ({rows: launches}; R for the external products, ModUp and
-# ModDown)
+# the same launches by their rows ({rows: launches}; R for the external products, ModUp,
+# ModDown and the tensor product)
 LAUNCH_ROWS: Dict[str, Dict[int, int]] = {k: {} for k in LAUNCHES}
 
 # the rows one launch of K1-K4 takes: every power of two from 8 to
@@ -193,6 +195,9 @@ _ARGTYPES = {
     },
     "marker": {
         "hh_boot_mark": [_I, _P],
+    },
+    "modarith": {
+        "hh_tensor_product": [_P, _LL, _LL] * 4 + [_P] * 6 + [_LL, _I, _I, _P],
     },
 }
 
@@ -564,6 +569,58 @@ def moddown_apply(a: torch.Tensor, b: torch.Tensor, rhat: torch.Tensor,
         _check_rc(lib, rc, "moddown_apply")
         _count("moddown_apply", R)
     return out
+
+
+def tensor_product(a0: torch.Tensor, a1: torch.Tensor, b0: torch.Tensor, b1: torch.Tensor, q,
+                   two_q, neg_qinv, r_mod_q, r_shoup):
+    """The tensor product of (a0, a1) and (b0, b1), in one launch: b
+    scaled into the Montgomery domain by r_mod_q / r_shoup, then p0 = a0
+    b0, p1 = a0 b1 + a1 b0, p2 = a1 b1 (Montgomery products, one lazy add).
+
+    a0, a1, b0, b1: int64 lazy residues [..., L, n] of one shape (the low 32
+    bits are read), each read through its own strides: unit stride on the
+    last axis, 16-byte aligned rows, batch axes that flatten to one stride
+    (otherwise that operand is copied first); q, two_q, neg_qinv, r_mod_q,
+    r_shoup: int64 [L, 1]. Returns (p0, p1, p2), int64 [..., L, n] lazy in
+    [0, 2q): views of one contiguous [3, ..., L, n] tensor, bitwise
+    ops.modarith.tensor_product_plain."""
+    dev = a0.device
+    shape = tuple(a0.shape)
+    if len(shape) < 2:
+        raise ValueError(f"tensor_product takes operands [..., L, n], got {shape}")
+    *batch, L, n = shape
+    if n & (n - 1) or not MIN_N <= n <= MAX_N:
+        raise ValueError(f"tensor_product takes n a power of two in [{MIN_N}, {MAX_N}], got {n}")
+    for c, nm in ((q, "q"), (two_q, "two_q"), (neg_qinv, "neg_qinv"), (r_mod_q, "r_mod_q"),
+                  (r_shoup, "r_shoup")):
+        _require(c, nm, dev, (L, 1), torch.int64)
+    R = math.prod(batch)
+    args = []
+    for t, nm in ((a0, "a0"), (a1, "a1"), (b0, "b0"), (b1, "b1")):
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{nm} must be a CUDA tensor on {dev}, got {t.device}")
+        if t.dtype != torch.int64:
+            raise TypeError(f"{nm} must be torch.int64, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{nm} has shape {tuple(t.shape)}, expected {shape}")
+        if R and L:
+            t3 = t.reshape(R, L, n)
+            # the stride of an axis of one entry is never stepped
+            strides = (t3.stride(0) if R > 1 else 0, t3.stride(1) if L > 1 else 0)
+            if t3.stride(2) != 1 or strides[0] % 2 or strides[1] % 2 or t3.data_ptr() % 16:
+                raise ValueError(f"{nm} needs unit stride on its last axis and 16-byte aligned "
+                                 f"rows (its rows are loaded as 16-byte vectors)")
+            args += [t3.data_ptr(), *strides]
+    out = torch.empty((3, *shape), dtype=torch.int64, device=dev)
+    if R and L:
+        lib = _lib("modarith")
+        with torch.cuda.device(dev):
+            rc = lib.hh_tensor_product(
+                *args, out.data_ptr(), q.data_ptr(), two_q.data_ptr(), neg_qinv.data_ptr(),
+                r_mod_q.data_ptr(), r_shoup.data_ptr(), R, L, n.bit_length() - 3, _stream(dev))
+        _check_rc(lib, rc, "tensor_product")
+        _count("tensor_product", R)
+    return out[0], out[1], out[2]
 
 
 def mark(marker: int, device: torch.device) -> None:

@@ -270,22 +270,15 @@ def mult_plain(ctx, ct: BgvCt, pt: BgvPt) -> BgvCt:
 
 
 def mult_low_level(ctx, ct1: BgvCt, ct2: BgvCt) -> BgvQuadCt:
-    """Tensor product to 3 components."""
+    """Tensor product to 3 components (ops.modarith.tensor_product: one
+    kernel on the card)."""
     _check_t(ct1, ct2)
     ids = ct1.limb_ids
     dev = ct1.c0.data.device
-    rows = lambda nm: ctx.device_rows(nm, ids, dev)  # noqa: E731
-    q, two_q, neg_qinv = rows("q"), rows("two_q"), rows("neg_qinv")
-    r, r_sh = rows("r_mod_q"), rows("r_shoup")
-    b0 = ma.shoup_mul_lazy(ct2.c0.data, r, r_sh, q)
-    b1 = ma.shoup_mul_lazy(ct2.c1.data, r, r_sh, q)
-    a0, a1 = ct1.c0.data, ct1.c1.data
-    p0 = ma.mont_mul_lazy(a0, b0, q, neg_qinv)
-    p1 = ma.add_lazy(ma.mont_mul_lazy(a0, b1, q, neg_qinv),
-                     ma.mont_mul_lazy(a1, b0, q, neg_qinv), two_q)
-    p2 = ma.mont_mul_lazy(a1, b1, q, neg_qinv)
-    mk = lambda d: RnsPoly(d, NTT, ids)  # noqa: E731
-    return BgvQuadCt(mk(p0), mk(p1), mk(p2), ct1.plain_modulus)
+    consts = (ctx.device_rows(nm, ids, dev) for nm in ("q", "two_q", "neg_qinv", "r_mod_q",
+                                                       "r_shoup"))
+    p = ma.tensor_product(ct1.c0.data, ct1.c1.data, ct2.c0.data, ct2.c1.data, *consts)
+    return BgvQuadCt(*(RnsPoly(d, NTT, ids) for d in p), ct1.plain_modulus)
 
 
 def relinearize(ctx, quad: BgvQuadCt, rlk: rgsw_mod.RgswCt) -> BgvCt:

@@ -460,23 +460,14 @@ def mult_plain(ctx, ct: CkksCt, pt: CkksPt) -> CkksCt:
 
 
 def mult_low_level(ctx, ct1: CkksCt, ct2: CkksCt) -> CkksQuadCt:
-    """Tensor product to 3 components: ct2 is scaled into the Montgomery
-    domain once, then the 4 cross products are single Montgomery multiplies."""
+    """Tensor product to 3 components (ops.modarith.tensor_product: one
+    kernel on the card)."""
     ids = ct1.limb_ids
     dev = ct1.c0.data.device
-    q, two_q, neg_qinv, r, r_sh = (
-        ctx.device_rows(nm, ids, dev) for nm in ("q", "two_q", "neg_qinv", "r_mod_q", "r_shoup")
-    )
-    b0 = ma.shoup_mul_lazy(ct2.c0.data, r, r_sh, q)
-    b1 = ma.shoup_mul_lazy(ct2.c1.data, r, r_sh, q)
-    a0, a1 = ct1.c0.data, ct1.c1.data
-    p0 = ma.mont_mul_lazy(a0, b0, q, neg_qinv)
-    p1 = ma.add_lazy(
-        ma.mont_mul_lazy(a0, b1, q, neg_qinv), ma.mont_mul_lazy(a1, b0, q, neg_qinv), two_q
-    )
-    p2 = ma.mont_mul_lazy(a1, b1, q, neg_qinv)
-    return CkksQuadCt(RnsPoly(p0, NTT, ids), RnsPoly(p1, NTT, ids), RnsPoly(p2, NTT, ids),
-                      ct1.scaling_factor * ct2.scaling_factor)
+    consts = (ctx.device_rows(nm, ids, dev) for nm in ("q", "two_q", "neg_qinv", "r_mod_q",
+                                                       "r_shoup"))
+    p = ma.tensor_product(ct1.c0.data, ct1.c1.data, ct2.c0.data, ct2.c1.data, *consts)
+    return CkksQuadCt(*(RnsPoly(d, NTT, ids) for d in p), ct1.scaling_factor * ct2.scaling_factor)
 
 
 def _div_special(ctx, d0: RnsPoly, d1: RnsPoly):

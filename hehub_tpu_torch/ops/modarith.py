@@ -14,12 +14,15 @@ uint32 value its JAX twin returns, bit for bit:
 
 The CUDA kernels use the same operations on native uint32_t
 (csrc/modarith.cuh). Shapes broadcast; per-limb constants are [..., L, 1]
-against data [..., L, n].
+against data [..., L, n]. `tensor_product`, a ciphertext product's chain,
+launches its kernel (csrc/modarith.cu) for CUDA tensors.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hehub_tpu_torch import kernels
 
 MASK32 = 0xFFFFFFFF
 _MASK16 = 0xFFFF
@@ -110,3 +113,25 @@ def from_mont(a, q, neg_qinv):
     """a * 2^32 -> a mod q, via montmul(a, 1). Output [0, 2q)."""
     m = _mul_lo(a, neg_qinv)
     return (mul_hi(m, q) + (a != 0).to(a.dtype)) & MASK32
+
+
+def tensor_product_plain(a0, a1, b0, b1, q, two_q, neg_qinv, r_mod_q, r_shoup):
+    """The tensor product of the ciphertexts (a0, a1) and (b0, b1) to its
+    three halves: b scaled into the Montgomery domain once, then the four
+    cross products are single Montgomery multiplies. Returns (p0, p1, p2)
+    = (a0 b0, a0 b1 + a1 b0, a1 b1), lazy in [0, 2q)."""
+    b0 = shoup_mul_lazy(b0, r_mod_q, r_shoup, q)
+    b1 = shoup_mul_lazy(b1, r_mod_q, r_shoup, q)
+    p0 = mont_mul_lazy(a0, b0, q, neg_qinv)
+    p1 = add_lazy(mont_mul_lazy(a0, b1, q, neg_qinv), mont_mul_lazy(a1, b0, q, neg_qinv), two_q)
+    p2 = mont_mul_lazy(a1, b1, q, neg_qinv)
+    return p0, p1, p2
+
+
+def tensor_product(a0, a1, b0, b1, q, two_q, neg_qinv, r_mod_q, r_shoup):
+    """tensor_product_plain; CUDA tensors launch its kernel
+    (kernels.tensor_product, the operands broadcast to one shape first)."""
+    if not a0.is_cuda:
+        return tensor_product_plain(a0, a1, b0, b1, q, two_q, neg_qinv, r_mod_q, r_shoup)
+    a0, a1, b0, b1 = torch.broadcast_tensors(a0, a1, b0, b1)
+    return kernels.tensor_product(a0, a1, b0, b1, q, two_q, neg_qinv, r_mod_q, r_shoup)

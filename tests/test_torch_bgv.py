@@ -481,7 +481,8 @@ def test_bgv_steps_on_card_are_cpu(cuda_device, n, levels, num_special, alpha): 
     encrypt, add, mult_plain, mult + relinearize and mod_switch each decrypt
     exactly to numpy's slots mod t, decrypt_device equals decrypt on the
     fresh ciphertexts, K1, K2 and K3 (alpha=1) or ModUp and K4 (alpha=2)
-    launched, and the same steps on the CPU are bitwise the card's."""
+    launched, the tensor product's kernel once, and the same steps on the
+    CPU are bitwise the card's."""
     from hehub_tpu_torch import kernels
 
     params = tctx.create_bgv_params(n, num_levels=levels, num_special=num_special,
@@ -503,6 +504,7 @@ def test_bgv_steps_on_card_are_cpu(cuda_device, n, levels, num_special, alpha): 
     switch = ("ext_prod",) if alpha == 1 else ("ext_prod_conv", "modup")
     for kind in ("ntt_fwd", "ntt_inv") + switch:
         assert kernels.LAUNCHES[kind] > 0, kind
+    assert kernels.LAUNCHES["tensor_product"] == 1
     mul = lambda x, y: np.asarray(x.astype(object) * y.astype(object) % t, np.uint64)  # noqa: E731
     want = dict(add=(a + b) % t, mult_plain=mul(a, c), mult=mul(a, b), mod_switch=mul(a, b))
     for k, ct in outs.items():

@@ -214,7 +214,8 @@ def test_ckks_steps_on_card_are_cpu(cuda_device, monkeypatch, n, levels, special
     """Keys, encode + encrypt (the device codec), mult + relinearize +
     rescale, rotate(1), decrypt + decode of a batch of 2 on the card: the
     slots within mult_bound of a*b and within rot_bound of its roll, the
-    key switch's kernels launched (ModUp once a K4 launch at alpha>1), and
+    key switch's kernels launched (ModUp once a K4 launch at alpha>1), the
+    tensor product's kernel once, and
     the steps on the CPU through the plain versions bitwise the card's,
     their slots (through the device codec's plain version) within 1e-12."""
     params = tctx.create_ckks_params(n, 28, levels, use_security_budget=False,
@@ -242,6 +243,7 @@ def test_ckks_steps_on_card_are_cpu(cuda_device, monkeypatch, n, levels, special
         assert kernels.LAUNCHES[kind] > 0, kind
     if alpha > 1:
         assert kernels.LAUNCHES["modup"] == kernels.LAUNCHES["ext_prod_conv"]
+    assert kernels.LAUNCHES["tensor_product"] == 1
     assert rot.c0.limb_ids == tuple(range(levels - 1))
     assert np.abs(out_prod - a * b).max() <= mult_bound
     assert np.abs(out_rot - np.roll(a * b, 1, axis=-1)).max() <= rot_bound
